@@ -57,6 +57,11 @@ def pytest_configure(config):
     )
     config.addinivalue_line(
         "markers",
+        "cuda: needs a CUDA card (the repro_torch kernels have no CPU mode); "
+        "skips without one — tests/test_torch_cuda.py says how to run it there",
+    )
+    config.addinivalue_line(
+        "markers",
         "chaos: fault-injection suite (tests/test_resilience.py) — every "
         "injected fault must recover bit-exactly, degrade with a typed "
         "warning, or fail with a typed error; CI runs it as its own lane "
