@@ -13,6 +13,11 @@ Phases (any failure raises and the script exits nonzero):
    halo-tiled forward / inverse) against its plain PyTorch version on the
    card with ``torch.equal``: 4 schemes x 2 rounding modes, odd sizes,
    multi-tile grids, int32 extremes, and lines too long for shared memory.
+   Then hold the Rice encode and decode kernels against theirs: rows,
+   ``k`` and bit counts with ``torch.equal``, payload bytes with ``==``,
+   on adversarial bands (constant, all-escape int32 extremes, one value,
+   empty, cost ties, partial tails, multi-thousand-block bands) and on
+   every band of one 1024^2 x 8 batch.
 3. Serve: ``WaveletServeEngine`` with 1024^2 and 2048^2 buckets, 8 slots,
    5 levels of the reversible 5/3 lift (cdf53, jpeg2000 rounding — JPEG
    2000 Part 1's lossless path) on 8-bit samples with the DC level shift,
@@ -20,13 +25,23 @@ Phases (any failure raises and the script exits nonzero):
    reconstructed on the card with ``dwt_inv_2d_multi`` and must equal its
    request after the crop; each bucket's first response must equal the
    plain oracle.  The launch counters are reset just before this phase
-   and read just after it: every kernel must have launched.
-4. Time each kernel with CUDA events at the shapes the serve path gives
-   it (one 2048^2 batch of 8 slots, every level), beside its plain
-   version and its memory bound, comparing outputs once more.
-5. Print the ``{"kernels": [...]}`` line, the card line, and last the
+   and read just after it: every 2-D kernel must have launched.
+4. Encoded serve, the same engine with ``encode_response=True`` on half
+   random and half smooth 8-bit images: every batch container is decoded
+   once on the card (``codec.decode_batch``), inverse-transformed and
+   cropped, and every request must equal its image; one batch per bucket
+   must be byte-equal to the container built from the plain Rice encode of
+   the same bands; ``ProgressiveServeRoute`` thumbnails and full tiers are
+   checked; no encode may degrade or quarantine.  The counters are reset
+   just before and read just after: all six kernels must have launched.
+   One 2048^2 x 8 encoded step is then timed phase by phase.
+5. Time each kernel with CUDA events at the shapes the serve path gives
+   it (one 2048^2 batch of 8 slots: every level for the 2-D kernels, all
+   16 bands for the Rice kernels), beside its plain version and its bound,
+   comparing outputs once more.
+6. Print the ``{"kernels": [...]}`` line, the card line, and last the
    ``{"ok": true, ...}`` line.  ``--json-out PATH`` also writes the whole
-   record (every batch latency, every level's time) to PATH.
+   record (every batch latency, every level's and band's time) to PATH.
 """
 from __future__ import annotations
 
@@ -59,7 +74,17 @@ KERNELS = {
     "whole2d_inv": ("src/repro_torch/csrc/whole2d.cu", "src/repro/kernels/fused2d.py:133"),
     "tiled2d_fwd": ("src/repro_torch/csrc/tiled2d.cu", "src/repro/kernels/tiled2d.py:141"),
     "tiled2d_inv": ("src/repro_torch/csrc/tiled2d.cu", "src/repro/kernels/tiled2d.py:183"),
+    "rice_encode": ("src/repro_torch/csrc/rice.cu", "src/repro/codec/rice.py:102"),
+    # no TPU kernel: the reference decodes with a jnp lax.scan
+    "rice_decode": ("src/repro_torch/csrc/rice.cu", "src/repro/codec/rice.py:223"),
 }
+KERNELS_2D = ("whole2d_fwd", "whole2d_inv", "tiled2d_fwd", "tiled2d_inv")
+
+# integer operations per coefficient either Rice direction needs at
+# least: encode — zigzag, bit length and next two bits into a per-block
+# histogram (from which all 25 k costs follow at a fixed cost per block),
+# code assembly and placement; decode — run count, shifts, or, unzigzag
+RICE_OPS = 10
 
 
 def card_line() -> str:
@@ -94,7 +119,7 @@ def parity_sweep(rng, dev) -> dict:
     from repro_torch.kernels import tiled2d as T
 
     shapes = [(2, 2), (3, 3), (7, 9), (33, 17), (257, 383), (512, 512)]
-    counts = {k: 0 for k in KERNELS}
+    counts = {k: 0 for k in KERNELS_2D}
     for sch in SCHEMES:
         sc = S.get_scheme(sch)
         for mode in MODES:
@@ -128,6 +153,71 @@ def parity_sweep(rng, dev) -> dict:
                     counts["tiled2d_inv"] += 1
     torch.cuda.synchronize(dev)
     return counts
+
+
+def _plain_rows(flat, chunk=8192):
+    """The plain Rice encode of a flat band on its device: (rows, nbits, k)."""
+    from repro_torch.codec import rice as R
+
+    blocks = R._blocks(flat)
+    parts = [R._encode_chunk(blocks[i : i + chunk]) for i in range(0, blocks.shape[0], chunk)]
+    return tuple(torch.cat([p[j] for p in parts]) for j in range(3))
+
+
+def _plain_decode(payload, ks, lens, count, dev):
+    from repro_torch.codec import rice as R
+
+    return R.decode_band_plain(payload, ks.astype(np.int64), lens.astype(np.int64), count,
+                               device=dev, chunk_blocks=4096)[:count]
+
+
+def rice_check(label, flat, dev) -> int:
+    """Hold both Rice kernels against their plain versions on one flat
+    CUDA band; returns the max |decoded - band| (0 or it raises)."""
+    from repro_torch.codec import rice as R
+
+    count = flat.numel()
+    if count:
+        rows, ks, nbits = R.rice_encode_cuda(flat)
+        want = _plain_rows(flat)
+        _equal_or_raise(f"rice_encode {label}", [rows, nbits, ks.to(torch.int32)], list(want))
+    payload, ks, lens = R.encode_band(flat)
+    want_payload, want_ks, want_lens = R.encode_band_plain(flat, chunk_blocks=8192)
+    if payload != want_payload or not (np.array_equal(ks, want_ks)
+                                       and np.array_equal(lens, want_lens)):
+        raise AssertionError(f"rice_encode {label}: payload or tables differ from the plain version")
+    got = R.decode_band(payload, ks, lens, count, device=dev)
+    if count:
+        _equal_or_raise(f"rice_decode {label}", [got], [_plain_decode(payload, ks, lens, count, dev)])
+    return _equal_or_raise(f"rice roundtrip {label}", [got], [flat])
+
+
+def rice_sweep(rng, dev) -> dict:
+    """Phase 2, Rice half: adversarial bands and every band of one
+    1024^2 x 8 batch."""
+    from repro_torch import kernels as K
+
+    tie = np.concatenate([np.full(128, -1), np.full(128, 1)])  # u = 1, 2: k = 0, 1, 2 tie
+    bands = {
+        "zeros": np.zeros(1000), "const7": np.full(513, 7), "one": np.array([5]),
+        "empty": np.zeros(0), "min": np.full(300, I32.min), "max": np.full(300, I32.max),
+        "minmax": np.tile([I32.min, I32.max], 700), "ties": np.tile(tie, 5),
+        "tail": rng.integers(-3000, 3000, 3 * 256 + 77),
+        "full_range": rng.integers(I32.min, I32.max, 20000, dtype=np.int64),
+        "blocks_5000": rng.integers(-40, 40, 5000 * 256 + 3),
+        "blocks_20000": rng.integers(-1 << 12, 1 << 12, 20000 * 256),
+    }
+    cases = 0
+    for name, vals in bands.items():
+        rice_check(name, torch.from_numpy(np.asarray(vals).astype(np.int32)).to(dev), dev)
+        cases += 1
+    x = torch.from_numpy(rng.integers(-128, 128, (SLOTS, 1024, 1024), dtype=np.int32)).to(dev)
+    pyr = K.dwt_fwd_2d_multi(x, levels=LEVELS, mode=MODE, scheme=SCHEME)
+    for i, band in enumerate([pyr.ll] + [b for lvl in pyr.details for b in lvl]):
+        rice_check(f"1024^2x8 band {i} {tuple(band.shape)}", band.reshape(-1), dev)
+        cases += 1
+    torch.cuda.synchronize(dev)
+    return {"rice": cases}
 
 
 # ---------------------------------------------------------------------------
@@ -204,7 +294,7 @@ def serve(rng, dev, n_requests) -> dict:
     counts = K.launches.snapshot()
     if len(served) != n_requests:
         raise AssertionError(f"served {len(served)} of {n_requests} requests")
-    for k in KERNELS:
+    for k in KERNELS_2D:
         if counts.get(k, 0) <= 0:
             raise AssertionError(f"kernel {k} never launched on the serve path: {counts}")
     plans = {
@@ -246,7 +336,188 @@ def serve(rng, dev, n_requests) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: kernel times at the serve path's shapes.
+# Phase 4: the encoded-response serve route.
+# ---------------------------------------------------------------------------
+
+
+def smooth_image(rng, h, w):
+    """A few low-frequency sinusoids quantised to 8 bits (DC-shifted,
+    -128..127) plus +-2 noise: small detail coefficients, so the Rice
+    parameters span small k as well."""
+    yy, xx = np.meshgrid(np.arange(h, dtype=np.float32) / h, np.arange(w, dtype=np.float32) / w,
+                         indexing="ij")
+    img = np.zeros((h, w), np.float32)
+    for _ in range(3):
+        fy, fx, ph = rng.uniform(0.5, 3.0), rng.uniform(0.5, 3.0), rng.uniform(0, 2 * np.pi)
+        img += np.sin(2 * np.pi * (fy * yy + fx * xx) + ph).astype(np.float32)
+    img = np.round(img * 40) + rng.integers(-2, 3, (h, w))
+    return np.clip(img, -128, 127).astype(np.int32)
+
+
+def make_encoded_requests(rng, n):
+    """As make_requests, but every other request (uid % 4 in 1, 2) a
+    smooth image instead of random 8-bit samples."""
+    reqs = make_requests(rng, n)
+    for r in reqs:
+        if r.uid % 4 in (1, 2):
+            r.image = smooth_image(rng, *r.image.shape)
+    return reqs
+
+
+def plain_container(bands, n, bucket):
+    """The container ``encode_batch`` must give, its bands coded by the
+    plain Rice encode on the card."""
+    from repro_torch.codec import container as C
+    from repro_torch.codec import rice as R
+
+    coded = [R.encode_band_plain(b.reshape(-1), chunk_blocks=8192) for b in bands]
+    return C.assemble(coded, C.KIND_2D, SCHEME, MODE, np.dtype(np.int32), LEVELS, 2, (n,), bucket)
+
+
+def _timed(fn, dev):
+    torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def encoded_breakdown(big, dev) -> dict:
+    """One 2048^2 x 8 encoded serve step, phase by phase, each phase
+    timed alone on the host clock with a device sync after it."""
+    from repro_torch import kernels as K
+    from repro_torch.codec import container as C
+    from repro_torch.codec import rice as R
+
+    def assemble_batch():
+        batch = np.zeros((SLOTS,) + BUCKETS[-1], np.int32)
+        for i, r in enumerate(big):
+            batch[(i,) + tuple(slice(0, s) for s in r.image.shape)] = r.image
+        return batch
+
+    ms = {}
+    batch, ms["host_assembly"] = _timed(assemble_batch, dev)
+    xb, ms["host_to_device"] = _timed(lambda: torch.from_numpy(batch).to(dev), dev)
+    pyr, ms["forward_all_levels"] = _timed(
+        lambda: K.dwt_fwd_2d_multi(xb, levels=LEVELS, mode=MODE, scheme=SCHEME), dev)
+    bands = [b.reshape(-1) for b in [pyr.ll] + [b for lvl in pyr.details for b in lvl]]
+    # the stages of codec.rice.encode_band_cuda, each timed over all 16 bands
+    enc, ms["rice_encode_kernel"] = _timed(lambda: [R.rice_encode_cuda(b) for b in bands], dev)
+    offs, ms["byte_offsets"] = _timed(lambda: [R.byte_offsets(e[2]) for e in enc], dev)
+    tables, ms["tables_to_host"] = _timed(
+        lambda: [R.tables_to_host(e[1], lens) for e, (lens, _) in zip(enc, offs)], dev)
+    payloads, ms["compaction_kernel"] = _timed(lambda: [
+        R.rice_compact_cuda(e[0], e[2], o, int(t[1].sum()))
+        for e, (_, o), t in zip(enc, offs, tables)], dev)
+    coded, ms["device_to_host_payload"] = _timed(lambda: [
+        (R.payload_to_host(p),) + t for p, t in zip(payloads, tables)], dev)
+    for i, (got, want) in enumerate(zip(coded, [R.encode_band_cuda(b) for b in bands])):
+        if got[0] != want[0] or not all(np.array_equal(g, w) for g, w in zip(got[1:], want[1:])):
+            raise AssertionError(f"band {i}: encode stages differ from encode_band_cuda")
+    blob, ms["host_crc32_and_header"] = _timed(lambda: C.assemble(
+        coded, C.KIND_2D, SCHEME, MODE, np.dtype(np.int32), LEVELS, 2, (SLOTS,), BUCKETS[-1]),
+        dev)
+    ms["step_sum"] = sum(ms.values())
+    return {"ms": ms, "container_bytes": len(blob), "payload_bytes": sum(len(c[0]) for c in coded),
+            "coefficients": sum(b.numel() for b in bands)}
+
+
+def serve_encoded(rng, dev, n_requests) -> dict:
+    from repro_torch import codec, obs
+    from repro_torch import kernels as K
+    from repro_torch.serve import ProgressiveServeRoute, WaveletServeEngine, crop_result
+
+    eng = WaveletServeEngine(buckets=BUCKETS, batch_slots=SLOTS, levels=LEVELS, scheme=SCHEME,
+                             mode=MODE, device=str(dev), encode_response=True)
+    t = time.perf_counter()
+    eng.warmup()
+    warm_s = time.perf_counter() - t
+    reqs = make_encoded_requests(rng, n_requests)
+    for r in reqs:
+        eng.submit(r)
+    obs.reset()
+    K.launches.reset()
+    lat_ms, served = [], []
+    t_all = time.perf_counter()
+    while eng.scheduler.pending():
+        t = time.perf_counter()
+        done = eng.step()
+        torch.cuda.synchronize(dev)
+        lat_ms.append((time.perf_counter() - t) * 1e3)
+        served.extend(done)
+    serve_s = time.perf_counter() - t_all
+    encode_counts = K.launches.snapshot()
+    metrics = obs.snapshot()["metrics"]
+
+    # the client: decode each batch container once on the card, invert,
+    # crop; every request must equal its image
+    batches = {}
+    for r in served:
+        if r.error is not None or not r.done or r.encoded is None or r.batch_index is None:
+            raise AssertionError(f"request {r.uid}: served without its batch bytes ({r.error})")
+        batches.setdefault(id(r.encoded), []).append(r)
+    rows_ll = {}
+    for group in batches.values():
+        rows = codec.decode_batch(group[0].encoded, device=dev)
+        if len(rows) != len(group):
+            raise AssertionError(f"container holds {len(rows)} rows for {len(group)} requests")
+        for r in group:
+            row = rows[r.batch_index]
+            rows_ll[r.uid] = row.ll
+            xr = crop_result(K.dwt_inv_2d_multi(row, mode=MODE, scheme=SCHEME), r)
+            if not torch.equal(xr, torch.from_numpy(r.image).to(dev)):
+                raise AssertionError(f"request {r.uid}: encoded response is not bit-exact")
+    torch.cuda.synchronize(dev)
+    counts = K.launches.snapshot()
+    degrades = metrics.get("serve.encode_degrades", 0)
+    quarantines = metrics.get("serve.encode_quarantines", 0)
+    if degrades or quarantines:
+        raise AssertionError(f"encode degraded {degrades} / quarantined {quarantines} times")
+    if len(served) != n_requests:
+        raise AssertionError(f"served {len(served)} of {n_requests} requests")
+    for k in list(KERNELS) + ["rice_compact"]:  # rice_compact: the second kernel of rice_encode
+        if counts.get(k, 0) <= 0:
+            raise AssertionError(f"kernel {k} never launched on the encoded serve path: {counts}")
+
+    # one batch per bucket: byte-equal to the plain Rice encode of its bands
+    plain_checked = []
+    for bucket in BUCKETS:
+        group = next(g for g in batches.values() if g[0].bucket == bucket)
+        group = sorted(group, key=lambda r: r.batch_index)
+        leaves = [[r.pyramid.ll] + [b for lvl in r.pyramid.details for b in lvl] for r in group]
+        bands = [torch.stack([lv[j] for lv in leaves]) for j in range(len(leaves[0]))]
+        if plain_container(bands, len(group), bucket) != group[0].encoded:
+            raise AssertionError(f"bucket {bucket}: container differs from the plain encode")
+        plain_checked.append("x".join(map(str, bucket)))
+
+    # progressive tiers of one request, decoded on the card
+    route = ProgressiveServeRoute(device=dev)
+    r = next(r for r in served if r.padded)
+    route.store(r)
+    tiers = route.tiers(r.uid)
+    thumb = route.thumbnail(r.uid)
+    want = rows_ll[r.uid][tuple(slice(0, s) for s in tiers[0])]
+    if not torch.equal(thumb, want) or not torch.equal(
+            route.full(r.uid), torch.from_numpy(r.image).to(dev)):
+        raise AssertionError(f"request {r.uid}: progressive tiers differ")
+
+    big = [r for r in served if r.bucket == BUCKETS[-1]][:SLOTS]
+    lat = sorted(lat_ms)
+    return {
+        "warmup_s": warm_s, "requests": len(served), "undersized": sum(r.padded for r in served),
+        "batches": len(lat_ms), "serve_s": serve_s, "requests_per_s": len(served) / serve_s,
+        "batch_ms_p50": statistics.median(lat),
+        "batch_ms_p99": lat[min(len(lat) - 1, int(round(0.99 * (len(lat) - 1))))],
+        "batch_ms": lat_ms, "launches_serve": encode_counts, "launches": counts,
+        "container_bytes": {str(r.uid): len(r.encoded) for r in served},
+        "encode_degrades": degrades, "encode_quarantines": quarantines,
+        "plain_container_checked": plain_checked, "tiers_checked_uid": r.uid,
+        "breakdown_2048_ms": encoded_breakdown(big, dev),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: kernel times at the serve path's shapes.
 # ---------------------------------------------------------------------------
 
 
@@ -273,7 +544,7 @@ def time_kernels(rng, dev) -> list:
     sch = S.get_scheme(SCHEME)
     h0, w0 = BUCKETS[-1]
     per = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0, "err": 0, "levels": []}
-           for k in KERNELS}
+           for k in KERNELS_2D}
     # a level lifts every row pair, then every column pair: H*W pairs in all
     ops_per_sample = sum(sch.pair_op_counts()[k] for k in ("adders", "shifters"))
     for lv in range(LEVELS):
@@ -310,7 +581,8 @@ def time_kernels(rng, dev) -> list:
             e["levels"].append({"shape": [SLOTS, h, w], "ms": ms, "plain_ms": pms,
                                 "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3})
     out = []
-    for name, (source, replaces) in KERNELS.items():
+    for name in KERNELS_2D:
+        source, replaces = KERNELS[name]
         e = per[name]
         t_bytes = e["bytes"] / PEAK_BYTES_PER_S * 1e3
         t_ops = e["ops"] / PEAK_OPS_PER_S * 1e3
@@ -319,6 +591,86 @@ def time_kernels(rng, dev) -> list:
             "launches": 0, "max_abs_err": e["err"], "ms": e["ms"], "plain_ms": e["plain_ms"],
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "levels": e["levels"],
+        })
+    return out
+
+
+def time_rice(rng, dev) -> list:
+    """Both Rice kernels over all 16 bands of one 2048^2 x 8 batch (half
+    random, half smooth images, 5 levels), beside their plain versions
+    and their bounds.  ``rice_encode`` is timed as the whole encode on
+    the card: its encode kernel, the byte offsets and its compaction
+    kernel."""
+    from repro_torch import kernels as K
+    from repro_torch.codec import rice as R
+
+    h, w = BUCKETS[-1]
+    imgs = [rng.integers(-128, 128, (h, w), dtype=np.int32) if i % 2 else smooth_image(rng, h, w)
+            for i in range(SLOTS)]
+    x = torch.from_numpy(np.stack(imgs)).to(dev)
+    pyr = K.dwt_fwd_2d_multi(x, levels=LEVELS, mode=MODE, scheme=SCHEME)
+    bands = [b.reshape(-1) for b in [pyr.ll] + [b for lvl in pyr.details for b in lvl]]
+    count = sum(b.numel() for b in bands)
+
+    enc = [R.rice_encode_cuda(b) for b in bands]
+    enc_err = max(_equal_or_raise(f"rice_encode band {i}", [e[0], e[2], e[1].to(torch.int32)],
+                                  list(_plain_rows(b))) for i, (b, e) in enumerate(zip(bands, enc)))
+    coded = [R.encode_band(b) for b in bands]
+    payload = sum(len(c[0]) for c in coded)
+    totals = [len(c[0]) for c in coded]
+
+    def encode_on_card():
+        """The whole encode on the card, up to the payload's copy to the
+        host: the encode kernel, the byte offsets and the compaction
+        kernel (each band's payload size taken from the run above)."""
+        out = []
+        for b, total in zip(bands, totals):
+            rows, _, nbits = R.rice_encode_cuda(b)
+            out.append(R.rice_compact_cuda(rows, nbits, R.byte_offsets(nbits)[1], total))
+        return out
+
+    def encode_plain():
+        out = []
+        for b in bands:
+            rows, nbits, _ = _plain_rows(b)
+            lens = (nbits.to(torch.int64) + 7) // 8
+            out.append(rows[torch.arange(rows.shape[1], device=dev)[None, :] < lens[:, None]])
+        return out
+
+    enc_err = max(enc_err, _equal_or_raise("rice_encode payloads", encode_on_card(),
+                                           encode_plain()))
+    dec_in = []
+    for pay, ks, lens in coded:
+        offs = np.concatenate([[0], np.cumsum(lens.astype(np.int64))[:-1]])
+        dec_in.append((torch.from_numpy(np.frombuffer(pay, np.uint8).copy()).to(dev),
+                       torch.from_numpy(offs).to(dev),
+                       torch.from_numpy(lens.astype(np.int32)).to(dev),
+                       torch.from_numpy(ks).to(dev)))
+    dec_err = max(_equal_or_raise(
+        f"rice_decode band {i}", [R.rice_decode_cuda(*inp)[: b.numel()]],
+        [_plain_decode(c[0], c[1], c[2], b.numel(), dev)])
+        for i, (b, c, inp) in enumerate(zip(bands, coded, dec_in)))
+
+    runs = {
+        "rice_encode": (encode_on_card, encode_plain,
+                        4 * count + payload, RICE_OPS * count, enc_err),
+        "rice_decode": (lambda: [R.rice_decode_cuda(*inp) for inp in dec_in],
+                        lambda: [_plain_decode(c[0], c[1], c[2], b.numel(), dev)
+                                 for b, c in zip(bands, coded)],
+                        payload + 4 * count, RICE_OPS * count, dec_err),
+    }
+    out = []
+    for name, (kern, plain, nbytes, ops, err) in runs.items():
+        source, replaces = KERNELS[name]
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_OPS_PER_S * 1e3
+        out.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": 0, "max_abs_err": err, "ms": _median_ms(kern, 10),
+            "plain_ms": _median_ms(plain, 1), "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
+            "levels": [{"shape": [len(bands), count], "payload_bytes": payload,
+                        "bits_per_coefficient": 8 * payload / count}],
         })
     return out
 
@@ -348,6 +700,7 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     t = time.perf_counter()
     checks = parity_sweep(rng, dev)
+    checks.update(rice_sweep(rng, dev))
     print(f"parity: kernel == plain version on every case {checks} "
           f"({time.perf_counter() - t:.1f} s)", flush=True)
 
@@ -363,15 +716,34 @@ def main() -> int:
     print("one 2048^2 batch, ms: " + ", ".join(
         f"{k} {v:.3f}" for k, v in srv["breakdown_2048_ms"].items()))
 
-    kernels = time_kernels(rng, dev)
+    enc = serve_encoded(rng, dev, args.requests)
+    print(f"encoded serve: {enc['requests']} requests ({enc['undersized']} undersized) in "
+          f"{enc['batches']} batches, {enc['requests_per_s']:.2f} req/s, batch latency "
+          f"p50 {enc['batch_ms_p50']:.2f} ms p99 {enc['batch_ms_p99']:.2f} ms; every "
+          f"container decoded on the card and every request bit-exact; plain-encode "
+          f"containers equal for {enc['plain_container_checked']}; encode degrades "
+          f"{enc['encode_degrades']}, quarantines {enc['encode_quarantines']}", flush=True)
+    print(f"launches on the encoded serve path (rice_compact: the compaction kernel of "
+          f"rice_encode): serving {enc['launches_serve']}, "
+          f"with the client's decode and reconstruction {enc['launches']}")
+    bd = enc["breakdown_2048_ms"]
+    print(f"one encoded 2048^2 x 8 step ({bd['coefficients']} coefficients, "
+          f"{bd['payload_bytes']} payload bytes, {bd['container_bytes']} container bytes), ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in bd["ms"].items()))
+
+    kernels = time_kernels(rng, dev) + time_rice(rng, dev)
     for k in kernels:
-        k["launches"] = srv["launches"][k["name"]]
+        k["launches"] = enc["launches"][k["name"]]
         for lv in k.pop("levels"):
-            print(f"  {k['name']} {lv['shape']}: {lv['ms']:.4f} ms (plain {lv['plain_ms']:.3f} ms,"
-                  f" bound {lv['bound_ms']:.4f} ms)")
+            if "ms" in lv:  # a 2-D kernel's level
+                print(f"  {k['name']} {lv['shape']}: {lv['ms']:.4f} ms (plain {lv['plain_ms']:.3f}"
+                      f" ms, bound {lv['bound_ms']:.4f} ms)")
+            else:  # the Rice kernels: all bands of the batch at once
+                print(f"  {k['name']} {lv}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms,"
+                      f" bound {k['bound_ms']:.4f} ms, {k['bound_by']})")
     if args.json_out:
         record = {"card": card, "torch": torch.__version__, "seed": args.seed,
-                  "parity_cases": checks, "serve": srv, "kernels": kernels}
+                  "parity_cases": checks, "serve": srv, "serve_encoded": enc, "kernels": kernels}
         out = pathlib.Path(args.json_out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(record, indent=1))

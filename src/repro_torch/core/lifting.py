@@ -14,8 +14,11 @@ reference runs JAX with x64 disabled, which narrows int64 input to
 int32 before lifting, while torch would lift it natively in int64 — so
 neither choice would silently match.  Callers cast to int32 explicitly.
 
-The 1-D and N-D transforms and ``checked=`` range certification are not
-ported yet (``ROADMAP.md``, Queue 1).
+The 1-D and N-D pyramid types (:class:`WaveletPyramid`,
+:class:`PyramidND`) and their band geometry are here, because the codec
+reads and writes containers of every kind; the 1-D and N-D transforms
+themselves and ``checked=`` range certification are not ported yet
+(``ROADMAP.md``, Queue 1 items 3-5).
 """
 from __future__ import annotations
 
@@ -98,6 +101,14 @@ def dwt_inv_2d(bands: Bands2D, mode: str = "paper", scheme="cdf53") -> Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _to_tensor(a, device) -> Tensor:
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _to_array(t: Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
 class Pyramid2D(NamedTuple):
     """Multi-level 2-D (Mallat) decomposition.
 
@@ -117,24 +128,89 @@ class Pyramid2D(NamedTuple):
         """A tensor pyramid from any object with ``ll`` / ``details``
         whose leaves convert with ``np.asarray`` (a reference pyramid,
         or the result of :meth:`to_numpy`)."""
-
-        def t(a) -> Tensor:
-            return torch.from_numpy(np.array(a, copy=True)).to(device)
-
         return cls(
-            ll=t(pyr.ll),
-            details=tuple(tuple(t(b) for b in lvl) for lvl in pyr.details),
+            ll=_to_tensor(pyr.ll, device),
+            details=tuple(tuple(_to_tensor(b, device) for b in lvl) for lvl in pyr.details),
         )
 
     def to_numpy(self) -> "Pyramid2D":
         """The same pyramid with host numpy leaves."""
-
-        def a(t: Tensor) -> np.ndarray:
-            return t.detach().cpu().numpy()
-
         return Pyramid2D(
-            ll=a(self.ll),
-            details=tuple(tuple(a(b) for b in lvl) for lvl in self.details),
+            ll=_to_array(self.ll),
+            details=tuple(tuple(_to_array(b) for b in lvl) for lvl in self.details),
+        )
+
+
+class WaveletPyramid(NamedTuple):
+    """Multi-level 1-D decomposition: approx band + details, coarsest first."""
+
+    approx: Any
+    details: Tuple[Any, ...]  # details[0] is the COARSEST level
+
+    @property
+    def levels(self) -> int:
+        return len(self.details)
+
+    @classmethod
+    def from_numpy(cls, pyr, device="cpu") -> "WaveletPyramid":
+        """A tensor pyramid from any object with ``approx`` / ``details``
+        (a reference pyramid, or the result of :meth:`to_numpy`)."""
+        return cls(
+            approx=_to_tensor(pyr.approx, device),
+            details=tuple(_to_tensor(d, device) for d in pyr.details),
+        )
+
+    def to_numpy(self) -> "WaveletPyramid":
+        """The same pyramid with host numpy leaves."""
+        return WaveletPyramid(
+            approx=_to_array(self.approx),
+            details=tuple(_to_array(d) for d in self.details),
+        )
+
+
+class PyramidND(NamedTuple):
+    """Multi-level N-D (Mallat) decomposition.
+
+    ``approx`` is the coarsest all-lowpass band; ``details[0]`` is the
+    COARSEST level's tuple of ``2**ndim - 1`` detail bands in band-code
+    order (bit j of the code = highpass along axis -(j+1)).
+    """
+
+    approx: Any
+    details: Tuple[Tuple[Any, ...], ...]  # coarsest first
+
+    @property
+    def levels(self) -> int:
+        return len(self.details)
+
+    @property
+    def ndim(self) -> int:
+        """Number of transformed trailing axes (from the band count)."""
+        if not self.details:
+            raise ValueError("levels=0 pyramid carries no bands; ndim is undefined")
+        n_bands = len(self.details[0]) + 1
+        nd = n_bands.bit_length() - 1
+        if 1 << nd != n_bands:
+            raise ValueError(
+                f"malformed PyramidND: {n_bands - 1} detail bands per "
+                "level is not 2**ndim - 1"
+            )
+        return nd
+
+    @classmethod
+    def from_numpy(cls, pyr, device="cpu") -> "PyramidND":
+        """A tensor pyramid from any object with ``approx`` / ``details``
+        (a reference pyramid, or the result of :meth:`to_numpy`)."""
+        return cls(
+            approx=_to_tensor(pyr.approx, device),
+            details=tuple(tuple(_to_tensor(b, device) for b in lvl) for lvl in pyr.details),
+        )
+
+    def to_numpy(self) -> "PyramidND":
+        """The same pyramid with host numpy leaves."""
+        return PyramidND(
+            approx=_to_array(self.approx),
+            details=tuple(tuple(_to_array(b) for b in lvl) for lvl in self.details),
         )
 
 
@@ -232,3 +308,54 @@ def max_levels_2d(h: int, w: int) -> int:
         if h < 2 or w < 2:
             break
     return lv
+
+
+def band_sizes(n: int, levels: int) -> Tuple[int, Tuple[int, ...]]:
+    """(approx_len, detail_lens coarsest-first) for a length-n signal."""
+    sizes = []
+    cur = n
+    for _ in range(levels):
+        d_len = cur // 2
+        cur = cur - d_len  # ceil(cur/2)
+        sizes.append(d_len)
+    return cur, tuple(reversed(sizes))
+
+
+def max_levels_nd(shape: Tuple[int, ...]) -> int:
+    """Deepest N-D decomposition with >= 2 samples on EVERY axis per level
+    (0 when any axis is degenerate)."""
+    dims = list(shape)
+    lv = 0
+    while dims and all(n >= 2 for n in dims):
+        dims = [n - n // 2 for n in dims]
+        lv += 1
+        if any(n < 2 for n in dims):
+            break
+    return lv
+
+
+def band_shapes_nd(
+    shape: Tuple[int, ...], levels: int
+) -> Tuple[Tuple[int, ...], Tuple[Tuple[Tuple[int, ...], ...], ...]]:
+    """(approx_shape, per-level detail shapes coarsest-first, code order).
+
+    Bit j of a band code is highpass along axis -(j+1); every scheme keeps
+    the lazy-wavelet split len(s) = ceil(n/2), len(d) = floor(n/2).
+    """
+    ndim = len(shape)
+    dims = list(shape)
+    per_level = []
+    for _ in range(levels):
+        evens = [n - n // 2 for n in dims]
+        odds = [n // 2 for n in dims]
+        lvl = []
+        for code in range(1, 1 << ndim):
+            lvl.append(
+                tuple(
+                    odds[i] if (code >> (ndim - 1 - i)) & 1 else evens[i]
+                    for i in range(ndim)
+                )
+            )
+        per_level.append(tuple(lvl))
+        dims = evens
+    return tuple(dims), tuple(reversed(per_level))

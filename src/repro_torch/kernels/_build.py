@@ -17,6 +17,7 @@ there is no fallback to the plain versions.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -24,7 +25,7 @@ import pathlib
 import shutil
 import subprocess
 import time
-from typing import Dict, Iterable, List, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -39,10 +40,11 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-SOURCES = ("whole2d", "tiled2d")
+SOURCES = ("whole2d", "tiled2d", "rice")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 # C signatures of the exported launchers (every one returns a cudaError_t)
 _SIGNATURES = {
     "whole2d": {
@@ -53,6 +55,11 @@ _SIGNATURES = {
         "repro_tiled_fwd": [_I] + [_P] * 5 + [_I] * 6 + [_P, _I, _P],
         "repro_tiled_inv": [_I] + [_P] * 5 + [_I] * 6 + [_P, _I, _P],
     },
+    "rice": {
+        "repro_rice_encode": [_I] + [_P] * 4 + [_L, _L, _P],
+        "repro_rice_compact": [_I] + [_P] * 4 + [_L, _P],
+        "repro_rice_decode": [_I] + [_P] * 5 + [_L, _P],
+    },
 }
 
 
@@ -61,7 +68,32 @@ class KernelBuildError(RuntimeError):
 
 
 class KernelLaunchError(RuntimeError):
-    """A kernel launch returned a nonzero CUDA error code."""
+    """A kernel launch returned a nonzero CUDA error code, or a kernel's
+    asynchronous fault surfaced at a later synchronisation."""
+
+
+def is_kernel_fault(e: BaseException) -> bool:
+    """True for a kernel build or launch error, and for the error torch
+    raises when an asynchronous CUDA fault (illegal address, ...)
+    surfaces at a synchronising call."""
+    if isinstance(e, (KernelBuildError, KernelLaunchError)):
+        return True
+    accel = getattr(torch, "AcceleratorError", None)
+    return (accel is not None and isinstance(e, accel)) or (
+        isinstance(e, RuntimeError) and "CUDA error" in str(e)
+    )
+
+
+@contextlib.contextmanager
+def device_errors(label: str):
+    """Re-raise a CUDA fault that surfaces inside the block (a copy to the
+    host, a synchronisation) as :class:`KernelLaunchError`."""
+    try:
+        yield
+    except RuntimeError as e:
+        if is_kernel_fault(e) and not isinstance(e, (KernelBuildError, KernelLaunchError)):
+            raise KernelLaunchError(f"{label}: {e}") from e
+        raise
 
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -154,15 +186,16 @@ def library(name: str) -> ctypes.CDLL:
 
 def launch(
     name: str, fn: str, device: int, tensors: Sequence, ints: Sequence[int],
-    table: np.ndarray,
+    table: Optional[np.ndarray] = None,
 ) -> None:
     """Call one exported launcher of ``csrc/<name>.cu`` on the current
-    stream of ``device``: ``fn(device, *tensor pointers, *ints, table,
-    len(table), stream)``.  Raises on a nonzero CUDA error code."""
+    stream of ``device``: ``fn(device, *tensor pointers, *ints, [table,
+    len(table),] stream)`` — the scheme table only where one is given.
+    Raises on a nonzero CUDA error code."""
     lib = library(name)
+    extra = () if table is None else (table.ctypes.data_as(ctypes.c_void_p), len(table))
     rc = getattr(lib, fn)(
-        device, *(_ptr(t) for t in tensors), *ints,
-        table.ctypes.data_as(ctypes.c_void_p), len(table),
+        device, *(_ptr(t) for t in tensors), *ints, *extra,
         ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream),
     )
     if rc != 0:
@@ -175,14 +208,17 @@ def launch(
 # ---------------------------------------------------------------------------
 
 
-def check_tensors(label: str, tensors: Sequence[torch.Tensor]) -> int:
+def check_tensors(
+    label: str, tensors: Sequence[torch.Tensor], dtypes: Sequence[torch.dtype] = (torch.int32,)
+) -> int:
     """Validate a kernel's tensor arguments; returns their CUDA device
-    index.  Every tensor must be a contiguous int32 CUDA tensor on one
-    device."""
+    index.  Every tensor must be a contiguous CUDA tensor on one device,
+    of a dtype in ``dtypes`` (int32 unless the caller says otherwise)."""
     dev = None
     for t in tensors:
-        if t.dtype != torch.int32:
-            raise TypeError(f"{label}: kernel wrapper needs int32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+            raise TypeError(f"{label}: kernel wrapper needs {names}, got {t.dtype}")
         if t.device.type != "cuda":
             raise ValueError(f"{label}: kernel wrapper needs CUDA tensors, got {t.device}")
         if not t.is_contiguous():

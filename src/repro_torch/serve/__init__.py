@@ -4,10 +4,13 @@
                    shedding, deadlines (host-only, no device work)
     executor.py    transform callables cached per
                    (bucket, slots, scheme, levels, mode, device)
-    engine.py      micro-batch assembly, bounded retry
+    engine.py      micro-batch assembly, bounded retry, batch-level
+                   WZRC response encode
+    routes.py      progressive fidelity tiers (thumbnail / refine /
+                   full) from one stored bitstream per micro-batch
 
-Port of ``repro.serve`` without the codec response route, the
-progressive tiers and the LM engine (``ROADMAP.md``, Queue 1).
+Port of ``repro.serve`` without the 3-D buckets, the sharded route and
+the LM engine (``ROADMAP.md``, Queue 1).
 """
 from repro_torch.serve.engine import (  # noqa: F401
     TransformRequest,
@@ -15,13 +18,21 @@ from repro_torch.serve.engine import (  # noqa: F401
     crop_result,
 )
 from repro_torch.serve.executor import ExecKey, TransformExecutor  # noqa: F401
+from repro_torch.serve.routes import (  # noqa: F401
+    ProgressiveServeRoute,
+    StoredResponse,
+    tier_shape,
+)
 from repro_torch.serve.scheduler import BucketScheduler  # noqa: F401
 
 __all__ = [
     "BucketScheduler",
     "ExecKey",
+    "ProgressiveServeRoute",
+    "StoredResponse",
     "TransformExecutor",
     "TransformRequest",
     "WaveletServeEngine",
     "crop_result",
+    "tier_shape",
 ]

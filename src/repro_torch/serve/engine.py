@@ -20,10 +20,22 @@ Overload and failure semantics are the reference's: load shedding at
 re-queue path), and bounded retry with exponential backoff around the
 transform.
 
+``encode_response=True`` makes the engine a lossless codec service, as
+in the reference: each micro-batch ships as ONE WZRC container whose
+lead dim is the batch (``codec.encode_batch``), Rice-coded on the device
+the bands live on (on the card, the Rice kernels; only the coded bytes
+come to the host).  Every request carries the container and its
+``batch_index``.  An injected or other failure of the batch encode
+degrades to per-request containers; a failure of one request's encode
+quarantines that request alone.  A kernel that fails to build or launch
+(``KernelBuildError``, ``KernelLaunchError``, or torch's error for an
+asynchronous CUDA fault) is neither: it propagates out of
+:meth:`WaveletServeEngine.step`, and the batch goes back to its queue.
+
 Not ported yet, and refused with ``NotImplementedError``:
-``encode_response=True`` (ROADMAP.md Queue 1, item 2: the codec),
-``checked=True`` (item 4: checked ranges), 3-D buckets (item 5: the 3-D
-engine) and ``mesh=`` (item 7: the sharded transform).
+``checked=True`` (ROADMAP.md Queue 1, item 4: checked ranges), 3-D
+buckets (item 5: the 3-D engine) and ``mesh=`` (item 7: the sharded
+transform).
 """
 from __future__ import annotations
 
@@ -35,15 +47,15 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.kernels._build import is_kernel_fault
 from repro_torch.resilience import inject
-from repro_torch.resilience.errors import RetryExhaustedError, RetryWarning
+from repro_torch.resilience.errors import ResilienceWarning, RetryExhaustedError, RetryWarning
 from repro_torch.serve.executor import ExecKey, TransformExecutor
 from repro_torch.serve.scheduler import BucketScheduler
 
 Shape = Tuple[int, ...]
 
 _NOT_PORTED = {
-    "encode_response": "ROADMAP.md Queue 1 item 2 (the codec)",
     "checked": "ROADMAP.md Queue 1 item 4 (checked ranges)",
     "3-D buckets": "ROADMAP.md Queue 1 item 5 (the 3-D engine)",
     "mesh": "ROADMAP.md Queue 1 item 7 (the sharded transform)",
@@ -61,10 +73,13 @@ class TransformRequest:
     uid: int
     image: np.ndarray  # integer samples; any shape a registered bucket contains
     pyramid: Optional[Any] = None  # Pyramid2D of device tensors (when served)
+    encoded: Optional[bytes] = None  # WZRC container (encoded-response route)
+    batch_index: Optional[int] = None  # row in the batch container (None =
+    # single-request container: decode with codec.decode_pyramid directly)
     bucket: Optional[Shape] = None  # the bucket this request rode (scheduler)
     done: bool = False
     submitted_at: Optional[float] = None  # monotonic clock, set by submit()
-    error: Optional[Exception] = None  # per-request failure (deadline)
+    error: Optional[Exception] = None  # per-request failure (deadline, encode)
 
     @property
     def padded(self) -> bool:
@@ -92,7 +107,7 @@ class WaveletServeEngine:
     mode: str = "paper"
     scheme: str = "cdf53"  # lifting scheme from the registry
     device: str = "cuda"
-    encode_response: bool = False
+    encode_response: bool = False  # attach WZRC bytes to served requests
     mesh: Optional[Any] = None
     max_queue: int = 1024  # admission budget: submit() sheds beyond this
     deadline_s: Optional[float] = None  # per-request deadline (from submit)
@@ -105,8 +120,6 @@ class WaveletServeEngine:
         from repro_torch.core import lifting as _lifting
         from repro_torch.core import schemes as _schemes
 
-        if self.encode_response:
-            raise _not_ported("encode_response")
         if self.checked:
             raise _not_ported("checked")
         if self.mesh is not None:
@@ -172,13 +185,21 @@ class WaveletServeEngine:
 
     def warmup(self) -> int:
         """Build every bucket's transform and run it once on a zero batch,
-        so kernel builds and first-launch costs land before traffic.
-        Returns how many callables were new."""
+        so kernel builds and first-launch costs land before traffic; with
+        ``encode_response``, also build the Rice kernels and run an encode
+        and a decode once.  Returns how many callables were new."""
         dev = self._device()
         new = self.executor.warmup(self._exec_key(b) for b in self.scheduler.buckets)
         for b in self.scheduler.buckets:
             zeros = torch.zeros((self.batch_slots,) + b, dtype=torch.int32, device=dev)
             self.executor.executable(self._exec_key(b))(zeros)
+        if self.encode_response:
+            from repro_torch.codec import rice
+
+            probe = torch.arange(-300, 300, dtype=torch.int32, device=dev)
+            back = rice.decode_band(*rice.encode_band(probe), probe.numel(), device=dev)
+            if not torch.equal(back, probe):
+                raise RuntimeError("Rice encode/decode warm-up did not round-trip")
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return new
@@ -234,6 +255,63 @@ class WaveletServeEngine:
                     ))
                 return out
 
+    def _encode_batch(self, active: List[TransformRequest], pyr) -> None:
+        """Batch-level response encode: ONE WZRC container per micro-batch
+        (lead dim = the active batch).  Failure degrades to the
+        per-request encode loop, where a failing request quarantines
+        alone; kernel build and launch errors propagate."""
+        from repro_torch.codec import container
+
+        n = len(active)
+        try:
+            inject.check("serve.encode_batch")
+            sliced = type(pyr)(
+                ll=pyr.ll[:n], details=tuple(tuple(b[:n] for b in lvl) for lvl in pyr.details)
+            )
+            blob = container.encode_batch(sliced, scheme=self.scheme, mode=self.mode)
+        except Exception as e:  # noqa: BLE001 - degrade to per-request
+            if is_kernel_fault(e):  # never "served without bytes"
+                raise
+            obs.counter("serve.encode_degrades").inc()
+            obs.warn_event(
+                obs.DegradeEvent(
+                    subsystem="serve", requested="batch-encode",
+                    resolved="per-request-encode", reason=f"{type(e).__name__}: {e}",
+                ),
+                ResilienceWarning(
+                    f"batch-level response encode failed ({type(e).__name__}: {e}); "
+                    "degrading to per-request encode"
+                ),
+                stacklevel=3,
+            )
+        else:
+            for i, r in enumerate(active):
+                r.encoded = blob
+                r.batch_index = i
+            return
+        for r in active:
+            try:
+                inject.check("serve.encode")
+                r.encoded = container.encode_pyramid(r.pyramid, scheme=self.scheme, mode=self.mode)
+                r.batch_index = None
+            except Exception as e:  # noqa: BLE001 - quarantine per request
+                if is_kernel_fault(e):
+                    raise
+                r.error = e
+                obs.counter("serve.encode_quarantines").inc()
+                obs.warn_event(
+                    obs.FaultEvent(
+                        subsystem="serve", error=type(e).__name__, site="serve.encode",
+                        detail=f"request {r.uid} quarantined",
+                    ),
+                    ResilienceWarning(
+                        f"response encode failed for request {r.uid} "
+                        f"({type(e).__name__}: {e}); serving the pyramid without "
+                        "its encoded bytes"
+                    ),
+                    stacklevel=3,
+                )
+
     def step(self) -> List[TransformRequest]:
         """Serve one micro-batch; returns the requests it completed.
 
@@ -272,6 +350,18 @@ class WaveletServeEngine:
                     ll=pyr.ll[i],
                     details=tuple(tuple(b[i] for b in lvl) for lvl in pyr.details),
                 )
+            if self.encode_response and active:
+                try:
+                    self._encode_batch(active, pyr)
+                except Exception:
+                    # a kernel fault: as on the retry-exhausted path, the
+                    # batch goes back to its queue head, unserved
+                    for r in active:
+                        r.pyramid = r.encoded = r.batch_index = r.error = None
+                    expired, live = self.scheduler.expire_batch(active)
+                    self._expired_out.extend(expired)
+                    self.scheduler.requeue_front(bucket, live)
+                    raise
         for r in active:
             r.done = True
         obs.histogram("serve.batch_latency_ms", bucket=bucket_label).observe(

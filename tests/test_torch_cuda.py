@@ -14,11 +14,18 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import codec as TCODEC
 from repro_torch import kernels as TK
+from repro_torch.codec import rice as TR
 from repro_torch.core import schemes as TS
 from repro_torch.kernels import fused2d as TF
 from repro_torch.kernels import tiled2d as TT
-from repro_torch.serve import WaveletServeEngine, TransformRequest, crop_result
+from repro_torch.serve import (
+    ProgressiveServeRoute,
+    TransformRequest,
+    WaveletServeEngine,
+    crop_result,
+)
 
 SCHEMES = ("cdf53", "haar", "cdf22", "97m")
 MODES = ("paper", "jpeg2000")
@@ -92,3 +99,68 @@ def test_cuda_engine_serves_what_the_cpu_engine_serves(cuda_device):
             assert torch.equal(a, b.cpu())
         xr = crop_result(TK.dwt_inv_2d_multi(g.pyramid), g)
         assert torch.equal(xr.cpu(), torch.from_numpy(g.image))
+
+
+def _rice_bands(rng):
+    tie = np.concatenate([np.full(128, -1), np.full(128, 1)])
+    return {
+        "zeros": np.zeros(1000), "const7": np.full(513, 7), "min": np.full(300, I32.min),
+        "max": np.full(300, I32.max), "one": np.array([0]), "ramp": np.arange(-640, 640),
+        "ties": np.tile(tie, 3)[:700], "partial": rng.integers(-3000, 3000, 3 * 256 + 77),
+        "full_range": rng.integers(I32.min, I32.max, 5000, dtype=np.int64),
+        "long": rng.integers(-40, 40, 4096 * 256 + 5),
+    }
+
+
+@pytest.mark.cuda
+def test_cuda_rice_kernels_match_plain_versions(cuda_device):
+    rng = np.random.default_rng(10)
+    for name, vals in _rice_bands(rng).items():
+        x = torch.from_numpy(np.asarray(vals).astype(np.int32)).to(cuda_device)
+        rows, ks, nbits = TR.rice_encode_cuda(x)
+        by, want_nbits, want_k = TR._encode_chunk(TR._blocks(x))
+        assert torch.equal(rows, by) and torch.equal(nbits, want_nbits), name
+        assert torch.equal(ks.to(torch.int32), want_k), name
+        got = TR.encode_band(x)
+        want = TR.encode_band_plain(x.cpu())
+        assert got[0] == want[0], name
+        assert np.array_equal(got[1], want[1]) and np.array_equal(got[2], want[2]), name
+        out = TR.decode_band(*got, x.numel(), device=cuda_device)
+        assert torch.equal(out, x), name
+        plain = TR.decode_band_plain(got[0], got[1].astype(np.int64), got[2].astype(np.int64),
+                                     x.numel(), device=cuda_device)[: x.numel()]
+        assert torch.equal(out, plain), name
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda_device)
+    assert TR.encode_band(empty)[0] == b""  # no block: no launch
+    assert TR.decode_band(b"", np.zeros(0, np.uint8), np.zeros(0, np.uint16), 0,
+                          device=cuda_device).numel() == 0
+    torch.cuda.synchronize(cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_encoded_engine_serves_what_the_cpu_engine_serves(cuda_device):
+    rng = np.random.default_rng(11)
+    images = [_img(rng, s, -128, 128) for s in [(300, 300), (256, 256), (200, 280), (64, 64),
+                                                 (50, 60)]]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = WaveletServeEngine(buckets=[(64, 64), (300, 300)], batch_slots=2, levels=3,
+                                 device=dev, encode_response=True)
+        eng.warmup()
+        TK.launches.reset()
+        done = eng.run([TransformRequest(uid=i, image=im) for i, im in enumerate(images)])
+        out[dev] = sorted(done, key=lambda r: r.uid)
+    assert TK.launches.snapshot().get("rice_encode", 0) > 0
+    assert TK.launches.snapshot().get("rice_compact", 0) > 0
+    route = ProgressiveServeRoute(device=cuda_device)
+    for c, g in zip(out["cpu"], out["cuda"]):
+        assert g.error is None and g.encoded == c.encoded and g.batch_index == c.batch_index
+        row = TCODEC.decode_batch(g.encoded, device=cuda_device)[g.batch_index]
+        xr = crop_result(TK.dwt_inv_2d_multi(row, mode="paper"), g)
+        assert torch.equal(xr.cpu(), torch.from_numpy(g.image))
+        route.store(g)
+        assert torch.equal(route.full(g.uid).cpu(), torch.from_numpy(g.image))
+        assert torch.equal(route.thumbnail(g.uid).cpu(),
+                           g.pyramid.ll.cpu()[tuple(slice(0, s) for s in
+                                                    route.tiers(g.uid)[0])])
+    assert TK.launches.snapshot().get("rice_decode", 0) > 0

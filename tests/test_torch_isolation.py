@@ -33,7 +33,8 @@ def _imported_roots(path: pathlib.Path):
 def test_the_scan_sees_every_port_module():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for must in ("chip_smoke.py", "src/repro_torch/core/schemes.py",
-                 "src/repro_torch/kernels/fused2d.py", "src/repro_torch/serve/engine.py"):
+                 "src/repro_torch/kernels/fused2d.py", "src/repro_torch/serve/engine.py",
+                 "src/repro_torch/codec/rice.py"):
         assert must in names
 
 
@@ -45,7 +46,7 @@ def test_no_port_file_imports_jax_or_repro(path):
 
 def test_fresh_interpreter_imports_the_port_without_jax():
     code = (
-        "import sys; import repro_torch.serve, repro_torch.kernels; "
+        "import sys; import repro_torch.serve, repro_torch.kernels, repro_torch.codec; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'));"
         "print(bad); sys.exit(1 if bad else 0)"
     )

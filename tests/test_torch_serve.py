@@ -5,14 +5,21 @@ The same seeded requests go through ``repro_torch.serve`` on the CPU
 pyramids must be equal bit for bit, and every response must reconstruct
 its request after the crop.  Also: the reference's retry, deadline and
 load-shed semantics, and the refusals (no card, not-yet-ported routes).
+With ``encode_response=True`` the per-batch WZRC containers must be the
+reference engine's byte for byte, and the progressive tiers its tiers.
 """
+import warnings
+
 import numpy as np
 import pytest
 import torch
 
 import jax
 
+from repro import codec as RCODEC
 from repro import serve as RSV
+from repro.resilience import inject as RINJ
+from repro_torch import codec as TCODEC
 from repro_torch import serve as TSV
 from repro_torch import kernels as TK
 from repro_torch import obs
@@ -24,11 +31,14 @@ from repro_torch.resilience.errors import (
     RetryExhaustedError,
     RetryWarning,
 )
+from repro_torch.kernels import _build
 from repro_torch.serve import (
     BucketScheduler,
+    ProgressiveServeRoute,
     TransformRequest,
     WaveletServeEngine,
     crop_result,
+    tier_shape,
 )
 
 BUCKETS = [(16, 16), (32, 32)]
@@ -94,7 +104,6 @@ def test_default_engine_refuses_to_serve_without_a_card():
 @pytest.mark.parametrize(
     "kwargs,item",
     [
-        (dict(buckets=BUCKETS, encode_response=True), "codec"),
         (dict(buckets=BUCKETS, checked=True), "checked ranges"),
         (dict(buckets=[(4, 16, 16)]), "3-D engine"),
         (dict(height=16, width=16, depth=4), "3-D engine"),
@@ -179,3 +188,166 @@ def test_crop_result_keeps_tensors_on_their_device():
     assert isinstance(crop_result(t, req), torch.Tensor)
     assert crop_result(t, req).shape == (3, 5)
     assert crop_result(t.numpy(), req).shape == (3, 5)
+
+
+# ---------------------------------------------------------------------------
+# The encoded-response route.
+# ---------------------------------------------------------------------------
+
+
+def _encoded_pair(scheme="cdf53", mode="jpeg2000", slots=4, levels=2, n=10):
+    port = WaveletServeEngine(buckets=BUCKETS, batch_slots=slots, levels=levels, scheme=scheme,
+                              mode=mode, device="cpu", encode_response=True)
+    ref = RSV.WaveletServeEngine(buckets=BUCKETS, batch_slots=slots, levels=levels,
+                                 scheme=scheme, mode=mode, encode_response=True)
+    got = sorted(port.run(_requests(TSV, n=n)), key=lambda r: r.uid)
+    want = sorted(ref.run(_requests(RSV, n=n)), key=lambda r: r.uid)
+    return port, got, want
+
+
+@pytest.mark.parametrize("scheme,mode", [("cdf53", "jpeg2000"), ("97m", "paper")])
+def test_encoded_engine_containers_equal_the_reference(scheme, mode):
+    # 10 requests in 4 slots over two buckets: undersized requests and a
+    # partial last batch per bucket
+    port, got, want = _encoded_pair(scheme, mode)
+    assert any(r.padded for r in got)
+    assert [r.uid for r in got] == [r.uid for r in want]
+    batches = set()
+    for g, w in zip(got, want):
+        assert g.error is None and w.error is None
+        assert g.encoded == w.encoded and g.batch_index == w.batch_index
+        batches.add((id(g.encoded), g.bucket))
+        row = TCODEC.decode_batch(g.encoded, device="cpu")[g.batch_index]
+        for a, b in zip([row.ll] + [t for lvl in row.details for t in lvl],
+                        [g.pyramid.ll] + [t for lvl in g.pyramid.details for t in lvl]):
+            assert torch.equal(a, b)
+        xr = crop_result(TK.dwt_inv_2d_multi(row, scheme=scheme, mode=mode), g)
+        np.testing.assert_array_equal(xr.numpy(), g.image)
+    # one shared container object per micro-batch, holding only live rows
+    assert len(batches) == len({(id(w.encoded), w.bucket) for w in want})
+    for g in got:
+        assert TCODEC.peek(g.encoded)["lead"][0] == sum(
+            1 for o in got if o.encoded is g.encoded)
+
+
+def test_encoded_engine_degrades_and_quarantines_like_the_reference():
+    def run(mod, inj, faults):
+        eng = mod.WaveletServeEngine(buckets=[(16, 16)], batch_slots=3, levels=1,
+                                     encode_response=True,
+                                     **({"device": "cpu"} if mod is TSV else {}))
+        for r in _requests(mod, n=3)[:3]:
+            r.image = r.image[:16, :16]
+            eng.submit(r)
+        inj.reset()
+        for site, fault in faults:
+            inj.arm(site, fault)
+        try:
+            return sorted(eng.step(), key=lambda r: r.uid)
+        finally:
+            inj.reset()
+
+    obs.reset()
+    for faults in (
+        [("serve.encode_batch", dict(times=1))],
+        [("serve.encode_batch", dict(times=1)), ("serve.encode", dict(at_call=2, times=1))],
+    ):
+        with pytest.warns(ResilienceWarning):
+            got = run(TSV, inject, [(s, inject.Fault(**f)) for s, f in faults])
+        want = run(RSV, RINJ, [(s, RINJ.Fault(**f)) for s, f in faults])
+        for g, w in zip(got, want):
+            assert g.encoded == w.encoded and g.batch_index == w.batch_index is None
+            assert type(g.error).__name__ == type(w.error).__name__
+            if g.encoded is not None:
+                dec = TCODEC.decode_pyramid(g.encoded, device="cpu")
+                assert dec.lead == () and torch.equal(dec.pyramid.ll, g.pyramid.ll)
+    assert [r.error is not None for r in got] == [False, True, False]
+    snap = obs.snapshot()["metrics"]
+    assert snap["serve.encode_degrades"] == 2 and snap["serve.encode_quarantines"] == 1
+
+
+# an asynchronous CUDA fault surfaces as torch's RuntimeError at the next sync
+_ASYNC_FAULT = "CUDA error: an illegal memory access was encountered"
+
+
+@pytest.mark.parametrize("err", [_build.KernelBuildError, _build.KernelLaunchError, RuntimeError])
+def test_kernel_faults_in_the_encode_propagate(monkeypatch, err):
+    from repro_torch.codec import rice
+
+    def broken(x):
+        raise err(_ASYNC_FAULT if err is RuntimeError else "rice kernel broke")
+
+    # batch_fault: the batch encode degrades first, and the kernel fault
+    # then hits the per-request encode
+    for batch_fault in (False, True):
+        eng = WaveletServeEngine(buckets=BUCKETS, batch_slots=2, levels=1, device="cpu",
+                                 encode_response=True)
+        reqs = _requests(TSV, n=5)[::4]  # two 16x16 requests: one batch
+        for r in reqs:
+            eng.submit(r)
+        monkeypatch.setattr(rice, "encode_band", broken)
+        obs.reset()
+        inject.reset()
+        if batch_fault:
+            inject.arm("serve.encode_batch", inject.Fault(times=1))
+        with pytest.raises(err), warnings.catch_warnings():
+            warnings.simplefilter("ignore", ResilienceWarning)
+            eng.step()
+        inject.reset()
+        metrics = obs.snapshot()["metrics"]
+        assert metrics.get("serve.encode_degrades", 0) == int(batch_fault)
+        assert metrics.get("serve.encode_quarantines", 0) == 0
+        for r in reqs:  # not served without bytes, and not lost: back in the queue
+            assert r.encoded is None and r.pyramid is None and r.error is None
+            assert not r.done
+        monkeypatch.undo()
+        done = eng.run([])
+        assert [r.uid for r in done] == [r.uid for r in reqs]
+        assert all(r.done and r.encoded is not None for r in done)
+
+
+def test_device_errors_become_kernel_launch_errors():
+    with pytest.raises(_build.KernelLaunchError, match="payload to host: CUDA error"):
+        with _build.device_errors("payload to host"):
+            raise RuntimeError(_ASYNC_FAULT)
+    with pytest.raises(ValueError):  # anything else passes through unchanged
+        with _build.device_errors("payload to host"):
+            raise ValueError("not a device fault")
+    assert _build.is_kernel_fault(RuntimeError(_ASYNC_FAULT))
+    assert not _build.is_kernel_fault(RuntimeError("shape mismatch"))
+
+
+def test_encoded_engine_warmup_runs_the_rice_coder(monkeypatch):
+    from repro_torch.codec import rice
+
+    calls = []
+    real = rice.encode_band
+    monkeypatch.setattr(rice, "encode_band", lambda x: calls.append(x.numel()) or real(x))
+    eng = WaveletServeEngine(buckets=BUCKETS, levels=1, device="cpu", encode_response=True)
+    assert eng.warmup() == 2 and calls
+    calls.clear()
+    WaveletServeEngine(buckets=BUCKETS, levels=1, device="cpu").warmup()
+    assert not calls
+
+
+def test_route_tiers_equal_the_reference_route():
+    port, got, want = _encoded_pair(levels=2)
+    rt, rr = ProgressiveServeRoute(device="cpu"), RSV.ProgressiveServeRoute()
+    for g, w in zip(got, want):
+        rt.store(g)
+        rr.store(w)
+    for g in got:
+        assert rt.tiers(g.uid) == rr.tiers(g.uid)
+        thumb = rt.thumbnail(g.uid)
+        assert isinstance(thumb, torch.Tensor) and thumb.device.type == "cpu"
+        np.testing.assert_array_equal(thumb.numpy(), rr.thumbnail(g.uid))
+        assert tuple(thumb.shape) == tier_shape(g.image.shape, 2, 0)
+        np.testing.assert_array_equal(rt.refine(g.uid, 1).numpy(), rr.refine(g.uid, 1))
+        np.testing.assert_array_equal(rt.full(g.uid).numpy(), g.image)
+    with pytest.raises(ValueError, match="no encoded response"):
+        rt.store(TransformRequest(uid=99, image=np.zeros((4, 4), np.int32)))
+    with pytest.raises(KeyError, match="no stored response"):
+        rt.thumbnail(1234)
+    blob = RCODEC.encode_pyramid(want[0].pyramid, mode="jpeg2000")  # a single-request blob
+    rt.put(500, blob)
+    rr.put(500, blob)
+    np.testing.assert_array_equal(rt.full(500).numpy(), rr.full(500))
