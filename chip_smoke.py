@@ -35,13 +35,34 @@ Phases (any failure raises and the script exits nonzero):
    checked; no encode may degrade or quarantine.  The counters are reset
    just before and read just after: all six kernels must have launched.
    One 2048^2 x 8 encoded step is then timed phase by phase.
-5. Time each kernel with CUDA events at the shapes the serve path gives
-   it (one 2048^2 batch of 8 slots: every level for the 2-D kernels, all
-   16 bands for the Rice kernels), beside its plain version and its bound,
-   comparing outputs once more.
-6. Print the ``{"kernels": [...]}`` line, the card line, and last the
+5. 1-D parity: the windowed 1-D kernels (``lift1d.cu``) and the row pass
+   (``whole2d.cu``, the 1-D fallback) against their plain versions with
+   ``torch.equal``: 4 schemes x 2 modes, n in {2, 3, 5, 15, 16, 17, 31,
+   1001, 65536, 65537}, rows in {1, 3, 64}, int32 extremes, leading dims
+   (2, 3, n), int8/int16/uint8/uint16/int32 inputs through the library
+   entry points; forward, and inverse of the forward's bands.
+6. The 1-D library path: the repo's ``LARGE``, ``LARGE_HAAR`` and
+   ``LARGE_97M`` configs (64 x 65,536 int32, 4 levels; 16-bit samples
+   from ``--seed``) through ``kernels.dwt_fwd`` / ``dwt_inv`` with and
+   without ``checked=True``; over-range 97m inputs must raise
+   ``IntegerOverflowError``; the ``LARGE`` pyramid is coded into a WZRC
+   container and decoded and inverted on the card, and four 1-D chunks go
+   through a WZRS stream.  The counters are reset just before and read
+   just after: both 1-D kernels, the row pass and the Rice kernels must
+   have launched, and no plain version may have been called on a CUDA
+   tensor.  Then the results are held against the plain versions: the
+   pyramids and the container and stream bytes must be equal, every
+   reconstruction the input.
+7. Time each kernel with CUDA events at the shapes its path gives it
+   (one 2048^2 batch of 8 slots: every level for the 2-D kernels, all 16
+   bands for the Rice kernels; 4 levels at (a) 64 x 65,536, (b) 1024 x
+   65,536 and (c) one line of 11,534,336 samples for the 1-D kernels, the
+   cdf22 row pass at (a) and (c)), beside its plain version and its
+   bound, comparing outputs once more.
+8. Print the ``{"kernels": [...]}`` line, the card line, and last the
    ``{"ok": true, ...}`` line.  ``--json-out PATH`` also writes the whole
-   record (every batch latency, every level's and band's time) to PATH.
+   record (every batch latency, every level's, band's and shape's time)
+   to PATH.
 """
 from __future__ import annotations
 
@@ -79,6 +100,14 @@ KERNELS = {
     "rice_decode": ("src/repro_torch/csrc/rice.cu", "src/repro/codec/rice.py:223"),
 }
 KERNELS_2D = ("whole2d_fwd", "whole2d_inv", "tiled2d_fwd", "tiled2d_inv")
+KERNELS_1D = {
+    "lift1d_fwd": ("src/repro_torch/csrc/lift1d.cu", "src/repro/kernels/dwt53.py:57"),
+    "lift1d_inv": ("src/repro_torch/csrc/lift1d.cu", "src/repro/kernels/dwt53.py:92"),
+    # no TPU kernel: the reference's in-graph band-policy fallback of
+    # ops._fwd_level / _inv_level (short lines, unwindowable schemes)
+    "rows1d_fwd": ("src/repro_torch/csrc/whole2d.cu", "src/repro/kernels/ops.py:93"),
+    "rows1d_inv": ("src/repro_torch/csrc/whole2d.cu", "src/repro/kernels/ops.py:133"),
+}
 
 # integer operations per coefficient either Rice direction needs at
 # least: encode — zigzag, bit length and next two bits into a per-block
@@ -517,7 +546,7 @@ def serve_encoded(rng, dev, n_requests) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: kernel times at the serve path's shapes.
+# Phase 7: kernel times at the serve path's shapes.
 # ---------------------------------------------------------------------------
 
 
@@ -675,6 +704,286 @@ def time_rice(rng, dev) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 5-7: the 1-D library transform.
+# ---------------------------------------------------------------------------
+
+LENGTHS_1D = (2, 3, 5, 15, 16, 17, 31, 1001, 65536, 65537)
+PCM16 = (-32768, 32768)  # 16-bit samples: the LARGE configs' input range
+
+
+def parity_sweep_1d(rng, dev) -> dict:
+    """Phase 5: every 1-D kernel against its plain version, ``torch.equal``."""
+    from repro_torch import kernels as K
+    from repro_torch.core import lifting as L
+    from repro_torch.core import schemes as S
+    from repro_torch.kernels import backend as B
+    from repro_torch.kernels import dwt53 as D
+
+    K.launches.reset()
+    cases = 0
+    for name in SCHEMES:
+        sch = S.get_scheme(name)
+        for mode in MODES:
+            for n in LENGTHS_1D:
+                for rows in (1, 3, 64):
+                    kinds = ("rand", "min", "max") if rows == 3 and n <= 1001 else ("rand",)
+                    for kind in kinds:
+                        if kind == "rand":
+                            x = rng.integers(-(1 << 20), 1 << 20, (rows, n), dtype=np.int32)
+                        else:
+                            x = np.full((rows, n), I32.min if kind == "min" else I32.max, np.int32)
+                        xt = torch.from_numpy(x).to(dev)
+                        label = f"{name}/{mode}/{rows}x{n}/{kind}"
+                        s0, d0 = S.lift_fwd_axis(xt, sch, axis=-1, mode=mode)
+                        _equal_or_raise("rows1d_fwd " + label, D.rows_fwd_cuda(xt, mode, sch),
+                                        [s0, d0])
+                        _equal_or_raise("rows1d_inv " + label, [D.rows_inv_cuda(s0, d0, mode, sch)],
+                                        [S.lift_inv_axis(s0, d0, sch, axis=-1, mode=mode)])
+                        if sch.can_window(n):
+                            rb, bp = B.pick_blocks(rows, n - n // 2, sch.halo, dev)
+                            for rb_, bp_ in {(rb, bp), (2, 3)}:
+                                lab = f"{label}/blocks{rb_}x{bp_}"
+                                _equal_or_raise("lift1d_fwd " + lab,
+                                                D.lift_fwd_windows_cuda(xt, mode, rb_, bp_, sch),
+                                                D.lift_fwd_windows_plain(xt, mode, bp_, sch))
+                                _equal_or_raise("lift1d_inv " + lab,
+                                                [D.lift_inv_windows_cuda(s0, d0, mode, rb_, bp_, sch)],
+                                                [D.lift_inv_windows_plain(s0, d0, mode, bp_, sch)])
+                        cases += 1
+            # the library entry points: leading dims, every accepted dtype
+            x = torch.from_numpy(rng.integers(-(1 << 20), 1 << 20, (2, 3, 1001),
+                                              dtype=np.int32)).to(dev)
+            got, want = K.dwt_fwd_1d(x, mode=mode, scheme=name), L.dwt_fwd_1d(x, mode, name)
+            _equal_or_raise(f"dwt_fwd_1d {name}/{mode}/2x3x1001", got, want)
+            _equal_or_raise(f"dwt_inv_1d {name}/{mode}/2x3x1001",
+                            [K.dwt_inv_1d(*got, mode=mode, scheme=name)], [x])
+            cases += 1
+            for dt in (np.int8, np.int16, np.uint8, np.uint16, np.int32):
+                info = np.iinfo(dt)
+                xn = rng.integers(info.min, info.max, (3, 4099), endpoint=True).astype(dt)
+                xn[0, :64], xn[1, :64] = info.min, info.max
+                xt = torch.from_numpy(xn).to(dev)
+                pyr, want = K.dwt_fwd(xt, levels=4, mode=mode, scheme=name), L.dwt_fwd(
+                    xt, levels=4, mode=mode, scheme=name)
+                label = f"dwt_fwd {name}/{mode}/{np.dtype(dt).name}"
+                _equal_or_raise(label, (pyr.approx,) + pyr.details, (want.approx,) + want.details)
+                _equal_or_raise(label + " inverse", [K.dwt_inv(pyr, mode=mode, scheme=name)],
+                                [L.dwt_inv(want, mode=mode, scheme=name)])
+                cases += 1
+    torch.cuda.synchronize(dev)
+    return {"cases_1d": cases, "launches": K.launches.snapshot()}
+
+
+class PlainGuard:
+    """Counts calls of the plain versions with a CUDA tensor (or a CUDA
+    ``device``) while active: on the main path there must be none."""
+
+    TARGETS = (
+        ("repro_torch.kernels.dwt53", ("lift_fwd_windows_plain", "lift_inv_windows_plain")),
+        ("repro_torch.core.schemes", ("lift_fwd_axis", "lift_inv_axis")),
+        ("repro_torch.codec.rice", ("encode_band_plain", "decode_band_plain")),
+    )
+
+    def __enter__(self):
+        import importlib
+
+        self.calls, self.saved = {}, []
+        for mod_name, fns in self.TARGETS:
+            mod = importlib.import_module(mod_name)
+            for fn in fns:
+                orig = getattr(mod, fn)
+                self.saved.append((mod, fn, orig))
+                setattr(mod, fn, self._wrap(f"{mod_name}.{fn}", orig))
+        return self
+
+    def _wrap(self, label, orig):
+        def wrapped(*args, **kwargs):
+            vals = list(args) + list(kwargs.values())
+            if any((isinstance(v, torch.Tensor) and v.is_cuda)
+                   or (isinstance(v, (str, torch.device)) and str(v).startswith("cuda"))
+                   for v in vals):
+                self.calls[label] = self.calls.get(label, 0) + 1
+            return orig(*args, **kwargs)
+        return wrapped
+
+    def __exit__(self, *exc):
+        for mod, fn, orig in self.saved:
+            setattr(mod, fn, orig)
+        return False
+
+
+def library_path_1d(rng, dev) -> dict:
+    """Phase 6: the repo's 1-D configs, checked mode and the 1-D codec on
+    the card; the counters and the plain-version guard cover exactly the
+    driven path, the comparisons with the plain versions come after."""
+    from repro_torch import kernels as K
+    from repro_torch.codec import container as C
+    from repro_torch.codec import stream as ST
+    from repro_torch.configs import dwt53 as CFG
+    from repro_torch.core import lifting as L
+    from repro_torch.core import ranges as RG
+    from repro_torch.resilience.errors import IntegerOverflowError
+
+    configs = (CFG.LARGE, CFG.LARGE_HAAR, CFG.LARGE_97M)
+    inputs = {c.name: torch.from_numpy(rng.integers(*PCM16, (c.batch, c.signal_len), dtype=np.int32))
+              .to(dev) for c in configs}
+    # over range for 97m: full-range int32 samples, and 16-bit noise with
+    # two samples one past the one-level certificate
+    cert1 = RG.range_certificate("97m", 1, "int32", mode=CFG.LARGE_97M.mode)
+    over = {"full_range": rng.integers(I32.min, I32.max, (64, 65536), dtype=np.int32,
+                                       endpoint=True)}
+    edge = rng.integers(*PCM16, (64, 65536), dtype=np.int32)
+    edge[5, 100], edge[60, 7] = cert1.lo - 1, cert1.hi + 1
+    over["one_past_level1_certificate"] = edge
+    big = CFG.LARGE
+    chunks = [rng.integers(*PCM16, shape, dtype=np.int32)
+              for shape in ((64, 16384), (64, 16384), (64, 16384), (3, 100))]
+    torch.cuda.synchronize(dev)
+
+    K.launches.reset()
+    ms, out, raised = {}, {}, {}
+    with PlainGuard() as guard:
+        for cfg in configs:
+            x = inputs[cfg.name]
+            for checked in (False, True):
+                kw = dict(mode=cfg.mode, scheme=cfg.scheme, checked=checked)
+                pyr, t_f = _timed(lambda: K.dwt_fwd(x, levels=cfg.levels, **kw), dev)
+                y, t_i = _timed(lambda: K.dwt_inv(pyr, **kw), dev)
+                out[(cfg.name, checked)] = (pyr, y)
+                ms[f"{cfg.name} checked={checked}"] = {"forward": t_f, "inverse": t_i}
+        for label, xo in over.items():
+            try:
+                K.dwt_fwd(torch.from_numpy(xo).to(dev), levels=4, scheme="97m",
+                          mode=CFG.LARGE_97M.mode, checked=True)
+            except IntegerOverflowError as e:
+                raised[label] = str(e)[:160]
+            else:
+                raise AssertionError(f"97m x4 checked forward of {label} did not raise")
+        pyr_big = out[(big.name, False)][0]
+        blob, ms["container_encode"] = _timed(
+            lambda: C.encode_pyramid(pyr_big, scheme=big.scheme, mode=big.mode), dev)
+        dec, ms["container_decode"] = _timed(lambda: C.decode_pyramid(blob, device=dev), dev)
+        x_dec, ms["inverse_transform"] = _timed(lambda: C.inverse_transform(dec), dev)
+        enc = ST.StreamEncoder(levels=4, scheme=big.scheme, mode=big.mode, ndim=1, device=dev)
+        data, ms["stream_encode"] = _timed(lambda: b"".join(enc.encode(chunks)), dev)
+        back, ms["stream_decode"] = _timed(lambda: list(ST.decode_stream(data, device=dev)), dev)
+    counts = K.launches.snapshot()
+    if guard.calls:
+        raise AssertionError(f"plain versions ran on CUDA tensors on the 1-D path: {guard.calls}")
+    need = list(KERNELS_1D) + ["rice_encode", "rice_compact", "rice_decode"]
+    missing = [k for k in need if counts.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels {missing} never launched on the 1-D path: {counts}")
+
+    for cfg in configs:
+        x = inputs[cfg.name]
+        want = L.dwt_fwd(x, levels=cfg.levels, mode=cfg.mode, scheme=cfg.scheme)
+        for checked in (False, True):
+            pyr, y = out[(cfg.name, checked)]
+            _equal_or_raise(f"{cfg.name} checked={checked} pyramid",
+                            (pyr.approx,) + pyr.details, (want.approx,) + want.details)
+            _equal_or_raise(f"{cfg.name} checked={checked} round trip", [y], [x])
+    x = inputs[big.name]
+    cpu_pyr = L.WaveletPyramid(approx=pyr_big.approx.cpu(),
+                               details=tuple(d.cpu() for d in pyr_big.details))
+    if C.encode_pyramid(cpu_pyr, scheme=big.scheme, mode=big.mode) != blob:
+        raise AssertionError("1-D container coded on the card differs from the plain encode")
+    _equal_or_raise("1-D container decode", (dec.pyramid.approx,) + dec.pyramid.details,
+                    (pyr_big.approx,) + pyr_big.details)
+    _equal_or_raise("1-D container inverse_transform", [x_dec], [x])
+    cpu_enc = ST.StreamEncoder(levels=4, scheme=big.scheme, mode=big.mode, ndim=1, device="cpu")
+    if b"".join(cpu_enc.encode(chunks)) != data:
+        raise AssertionError("1-D stream coded on the card differs from the plain encode")
+    _equal_or_raise("1-D stream round trip", [b.cpu() for b in back],
+                    [torch.from_numpy(c) for c in chunks])
+    torch.cuda.synchronize(dev)
+    return {"launches": counts, "plain_calls_on_cuda": guard.calls, "ms": ms,
+            "raised": raised, "container_bytes": len(blob), "stream_bytes": len(data),
+            "plans": {cfg.name: [K.plan_1d(cfg.signal_len >> lv, dev, cfg.scheme)
+                                 for lv in range(cfg.levels)] for cfg in configs}}
+
+
+def _ops_per_sample(sch) -> float:
+    """Adds and shifts per sample of one 1-D level: the scheme's count per
+    (s, d) pair (``pair_op_counts``, the Table-2 ledger), halved."""
+    return sum(sch.pair_op_counts()[k] for k in ("adders", "shifters")) / 2
+
+
+SHAPES_1D = {
+    "a": (64, 65536),  # LARGE: 16 MiB, L2-resident
+    "b": (1024, 65536),  # 256 MiB, beyond the 50 MB L2
+    "c": (1, 2048 * 5632),  # one stablelm-1.6b MLP matrix, flattened as the wz codec does
+}
+
+
+def time_1d(rng, dev) -> list:
+    """Phase 7, 1-D half: the 1-D kernels summed over 4 levels at three
+    shapes, beside their plain versions and bounds."""
+    from repro_torch.core import schemes as S
+    from repro_torch.kernels import backend as B
+    from repro_torch.kernels import dwt53 as D
+
+    levels = 4
+    rows_sch = S.get_scheme("cdf22")
+    sch = S.get_scheme("cdf53")
+    mode = "paper"
+    entries = {k: {"per_shape": {}} for k in KERNELS_1D}
+    for key, (rows, n0) in SHAPES_1D.items():
+        x0 = torch.from_numpy(rng.integers(*PCM16, (rows, n0), dtype=np.int32)).to(dev)
+        per = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0, "err": 0} for k in KERNELS_1D}
+        x = x0
+        for lv in range(levels):
+            n = x.shape[1]
+            rb, bp = B.pick_blocks(rows, n - n // 2, sch.halo, dev)
+            rbi, bpi = B.pick_blocks(rows, n - n // 2, 2 * sch.inv_margin, dev)
+            s, d = D.lift_fwd_windows_cuda(x, mode, rb, bp, sch)
+            runs = {
+                "lift1d_fwd": (lambda: D.lift_fwd_windows_cuda(x, mode, rb, bp, sch),
+                               lambda: D.lift_fwd_windows_plain(x, mode, bp, sch)),
+                "lift1d_inv": (lambda: [D.lift_inv_windows_cuda(s, d, mode, rbi, bpi, sch)],
+                               lambda: [D.lift_inv_windows_plain(s, d, mode, bpi, sch)]),
+            }
+            if key in ("a", "c"):
+                rs, rd = D.rows_fwd_cuda(x, mode, rows_sch)
+                runs["rows1d_fwd"] = (lambda: D.rows_fwd_cuda(x, mode, rows_sch),
+                                      lambda: S.lift_fwd_axis(x, rows_sch, axis=-1, mode=mode))
+                runs["rows1d_inv"] = (lambda: [D.rows_inv_cuda(rs, rd, mode, rows_sch)],
+                                      lambda: [S.lift_inv_axis(rs, rd, rows_sch, axis=-1,
+                                                               mode=mode)])
+            for name, (kern, plain) in runs.items():
+                e = per[name]
+                e["err"] = max(e["err"], _equal_or_raise(f"{name} {rows}x{n}", kern(), plain()))
+                serial = name.startswith("rows1d") and key == "c"
+                e["ms"] += _median_ms(kern, 3 if serial else 20)
+                e["plain_ms"] += _median_ms(plain, 3)
+                e["bytes"] += 2 * rows * n * 4  # every sample read once, every band entry written once
+                e["ops"] += rows * n * _ops_per_sample(rows_sch if name.startswith("rows1d") else sch)
+            x = s
+        for name, e in per.items():
+            if e["bytes"]:
+                t_bytes = e["bytes"] / PEAK_BYTES_PER_S * 1e3
+                t_ops = e["ops"] / PEAK_OPS_PER_S * 1e3
+                e["bound_ms"] = max(t_bytes, t_ops)
+                e["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+                entries[name]["per_shape"][key] = e
+        del x0, x, s, d
+        torch.cuda.empty_cache()
+    out = []
+    for name, ent in entries.items():
+        source, replaces = KERNELS_1D[name]
+        a = ent["per_shape"]["a"]
+        out.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": 0, "max_abs_err": max(e["err"] for e in ent["per_shape"].values()),
+            "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+            "bound_by": a["bound_by"], "library_ms": None,
+            "shapes": {k: {"shape": list(SHAPES_1D[k]), "ms": v["ms"], "plain_ms": v["plain_ms"],
+                           "bound_ms": v["bound_ms"]} for k, v in ent["per_shape"].items()},
+        })
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -731,9 +1040,38 @@ def main() -> int:
           f"{bd['payload_bytes']} payload bytes, {bd['container_bytes']} container bytes), ms: "
           + ", ".join(f"{k} {v:.3f}" for k, v in bd["ms"].items()))
 
+    t = time.perf_counter()
+    checks.update(parity_sweep_1d(rng, dev))
+    print(f"1-D parity: lift1d and row-pass kernels == plain versions on every case, "
+          f"{checks['cases_1d']} cases; comparison launches {checks.pop('launches')} "
+          f"({time.perf_counter() - t:.1f} s)", flush=True)
+    lib = library_path_1d(rng, dev)
+    print(f"1-D path: LARGE, LARGE_HAAR, LARGE_97M (64 x 65536 int32, 4 levels) forward and "
+          f"inverse, checked and not, equal to the plain versions and bit-exact round trips; "
+          f"over-range 97m raised IntegerOverflowError for {sorted(lib['raised'])}; "
+          f"{lib['container_bytes']}-byte WZRC container and {lib['stream_bytes']}-byte WZRS "
+          f"stream equal to the plain encode and decoded exactly on the card", flush=True)
+    print(f"launches on the 1-D path: {lib['launches']}; plain versions called on CUDA "
+          f"tensors: {sum(lib['plain_calls_on_cuda'].values())}")
+    print("1-D path, ms: " + "; ".join(
+        f"{k} " + (f"{v:.3f}" if isinstance(v, float) else
+                   ", ".join(f"{a} {b:.3f}" for a, b in v.items()))
+        for k, v in lib["ms"].items()))
+    for name, plan in lib["plans"].items():
+        print(f"plan_1d {name}: {plan}")
+
     kernels = time_kernels(rng, dev) + time_rice(rng, dev)
     for k in kernels:
         k["launches"] = enc["launches"][k["name"]]
+    kernels_1d = time_1d(rng, dev)
+    shapes_1d = {}
+    for k in kernels_1d:
+        k["launches"] = lib["launches"][k["name"]]
+        shapes_1d[k["name"]] = k.pop("shapes")
+        for key, sh in shapes_1d[k["name"]].items():
+            print(f"  {k['name']} ({key}) {sh['shape']} x 4 levels: {sh['ms']:.4f} ms (plain "
+                  f"{sh['plain_ms']:.3f} ms, bound {sh['bound_ms']:.4f} ms)")
+    for k in kernels:
         for lv in k.pop("levels"):
             if "ms" in lv:  # a 2-D kernel's level
                 print(f"  {k['name']} {lv['shape']}: {lv['ms']:.4f} ms (plain {lv['plain_ms']:.3f}"
@@ -743,10 +1081,13 @@ def main() -> int:
                       f" bound {k['bound_ms']:.4f} ms, {k['bound_by']})")
     if args.json_out:
         record = {"card": card, "torch": torch.__version__, "seed": args.seed,
-                  "parity_cases": checks, "serve": srv, "serve_encoded": enc, "kernels": kernels}
+                  "parity_cases": checks, "serve": srv, "serve_encoded": enc,
+                  "path_1d": lib, "kernels_1d_shapes": shapes_1d,
+                  "kernels": kernels + kernels_1d}
         out = pathlib.Path(args.json_out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(record, indent=1))
+    kernels += kernels_1d
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

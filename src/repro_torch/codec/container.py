@@ -21,17 +21,17 @@ Where the port differs from the reference:
     code on the coded bytes, as in the reference.
   * Decode rebuilds bands on ``device`` — the card by default, raising
     without one; ``device="cpu"`` runs the plain versions.
-  * ``checked=True`` (or ``REPRO_DWT_CHECKED``) raises
-    ``NotImplementedError`` where the reference would certify the bands
-    (ROADMAP.md Queue 1 item 4): the check is never skipped silently.
-  * :func:`inverse_transform` runs the port's 2-D inverse; the 1-D
-    inverse and the N-D inverse with ``levels > 0`` are not ported yet
-    and raise ``NotImplementedError`` (Queue 1 items 3 and 5).
+  * ``checked=True`` (or ``REPRO_DWT_CHECKED``) certifies the bands
+    against the range certificate's band envelope
+    (``core.ranges.assert_encodable``: one min/max per band where it
+    lives, compared on the host in Python integers), as the reference.
+  * :func:`inverse_transform` runs the port's 1-D and 2-D inverses; the
+    N-D inverse with ``levels > 0`` is not ported yet and raises
+    ``NotImplementedError`` (ROADMAP.md Queue 1 item 5).
   * There is no ``backend=`` argument: the band's device is the choice.
 """
 from __future__ import annotations
 
-import os
 import struct
 import time
 import zlib
@@ -49,7 +49,7 @@ from repro_torch.codec.errors import (
     TruncatedStreamError,
     UnsupportedVersionError,
 )
-from repro_torch.core import lifting
+from repro_torch.core import lifting, ranges
 from repro_torch.core.schemes import get_scheme
 
 MAGIC = b"WZRC"
@@ -75,16 +75,10 @@ _TORCH_DTYPES = {
 
 _HEAD = struct.Struct("<4sBBBBBBBBHBB")
 
-_NOT_PORTED = {
-    "checked": "ROADMAP.md Queue 1 item 4 (checked ranges)",
-    "1-D inverse": "ROADMAP.md Queue 1 item 3 (the 1-D transform)",
-    "N-D inverse": "ROADMAP.md Queue 1 item 5 (the 3-D engine)",
-}
-
-
-def _not_ported(what: str) -> NotImplementedError:
+def _not_ported_nd() -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet; see {_NOT_PORTED[what]}"
+        "N-D inverse is not ported to repro_torch yet; see ROADMAP.md Queue 1 "
+        "item 5 (the 3-D engine)"
     )
 
 
@@ -241,16 +235,6 @@ def _band_dtype(band: torch.Tensor) -> np.dtype:
     return _TORCH_DTYPES[band.dtype]
 
 
-def checked_enabled(checked=None) -> bool:
-    """The effective checked flag, as ``repro.core.ranges.checked_enabled``
-    resolves it: an explicit kwarg wins, else ``REPRO_DWT_CHECKED``."""
-    if checked is not None:
-        return bool(checked)
-    return os.environ.get("REPRO_DWT_CHECKED", "").strip().lower() not in (
-        "", "0", "false", "off", "no",
-    )
-
-
 # ---------------------------------------------------------------------------
 # Encode.
 # ---------------------------------------------------------------------------
@@ -337,13 +321,16 @@ def _encode_impl(
                 f"geometry expects {lead + want}"
             )
 
-    if checked_enabled(checked) and levels > 0:
+    if ranges.checked_enabled(checked) and levels > 0:
         try:
             get_scheme(scheme)
         except ValueError:
-            pass  # foreign scheme name: the reference cannot derive a certificate either
+            pass  # foreign scheme name: container records it, can't derive
         else:
-            raise _not_ported("checked")
+            ranges.assert_encodable(
+                bands, scheme=scheme, levels=levels, ndim=nd, mode=mode,
+                label="codec.encode_pyramid",
+            )
 
     coded = [rice.encode_band(band) for band in bands]
     return assemble(coded, kind, scheme, mode, dt, levels, nd, lead, shape,
@@ -698,18 +685,20 @@ def decode_pyramid_partial(data: bytes, device="cuda") -> PartialDecode:
 
 def inverse_transform(dec):
     """Run the recorded inverse transform on a decoded pyramid, where its
-    bands live.  2-D containers run the port's 2-D inverse; a levels-0
-    N-D container is its approx band; the 1-D inverse and the N-D inverse
-    with levels > 0 are not ported yet and raise NotImplementedError."""
+    bands live: the container is self-describing, so the right engine
+    (1-D / 2-D) and the recorded scheme/mode need no out-of-band
+    metadata.  A levels-0 N-D container is its approx band; the N-D
+    inverse with levels > 0 is not ported yet and raises
+    NotImplementedError."""
     from repro_torch import kernels as K
 
     if dec.kind == KIND_1D:
-        raise _not_ported("1-D inverse")
+        return K.dwt_inv(dec.pyramid, mode=dec.mode, scheme=dec.scheme)
     if dec.kind == KIND_2D:
         return K.dwt_inv_2d_multi(dec.pyramid, mode=dec.mode, scheme=dec.scheme)
     if dec.levels == 0:
         return dec.pyramid.approx  # identity pyramid carries no band order
-    raise _not_ported("N-D inverse")
+    raise _not_ported_nd()
 
 
 def encode_batch(

@@ -14,9 +14,9 @@ being cut at any frame boundary::
 :class:`StreamEncoder` forward-transforms each integer chunk over its
 trailing ``ndim`` axes where ``device`` says (levels clamped per frame),
 then container-encodes it; :func:`decode_stream` inverts each frame back
-to a sample tensor on ``device``.  The port's transform is 2-D only:
-``ndim`` 1 and 3 raise ``NotImplementedError`` (ROADMAP.md Queue 1 items
-3 and 5).
+to a sample tensor on ``device``.  Frames are 1-D (``kernels.dwt_fwd``)
+or 2-D (``kernels.dwt_fwd_2d_multi``); ``ndim >= 3`` raises
+``NotImplementedError`` (ROADMAP.md Queue 1 item 5, the 3-D engine).
 """
 from __future__ import annotations
 
@@ -43,12 +43,6 @@ _STREAM_HEAD = struct.Struct("<4sBBH")
 _FRAME_LEN = struct.Struct("<I")
 
 ByteSource = Union[bytes, bytearray, memoryview, io.IOBase, Iterable[bytes]]
-
-_NOT_PORTED = {
-    1: "ROADMAP.md Queue 1 item 3 (the 1-D transform)",
-    3: "ROADMAP.md Queue 1 item 5 (the 3-D engine)",
-}
-
 
 def stream_header() -> bytes:
     return _STREAM_HEAD.pack(STREAM_MAGIC, STREAM_VERSION, 0, 0)
@@ -82,10 +76,10 @@ class StreamEncoder:
             raise ValueError("levels must be >= 0")
         if ndim < 1:
             raise ValueError("ndim must be >= 1")
-        if ndim != 2:
+        if ndim >= 3:
             raise NotImplementedError(
                 f"{ndim}-D stream frames are not ported to repro_torch yet; see "
-                f"{_NOT_PORTED.get(ndim, _NOT_PORTED[3])}"
+                "ROADMAP.md Queue 1 item 5 (the 3-D engine)"
             )
         self.levels = levels
         self.scheme = scheme
@@ -108,7 +102,8 @@ class StreamEncoder:
         x = x.to(_backend.resolve_device(self.device))
         trailing = tuple(x.shape[-self.ndim:])
         levels = min(self.levels, lifting.max_levels_nd(trailing))
-        pyr = K.dwt_fwd_2d_multi(x, levels=levels, mode=self.mode, scheme=self.scheme)
+        fwd = K.dwt_fwd if self.ndim == 1 else K.dwt_fwd_2d_multi
+        pyr = fwd(x, levels=levels, mode=self.mode, scheme=self.scheme)
         return frame(container.encode_pyramid(pyr, scheme=self.scheme, mode=self.mode))
 
     def encode(self, chunks: Iterable) -> Iterator[bytes]:

@@ -1,0 +1,1 @@
+"""Benchmark configurations of the port (copies of ``repro.configs``)."""

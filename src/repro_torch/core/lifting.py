@@ -1,12 +1,12 @@
-"""The 2-D integer lifting DWT oracle, on torch tensors.
+"""The integer lifting DWT oracle, on torch tensors: 1-D and 2-D.
 
-Port of the 2-D part of ``repro.core.lifting``: one level over the last
-two axes is the row transform (axis -1) followed by the column
-transform (axis -2) of both row bands, band-policy math from
-:mod:`repro_torch.core.schemes`; the multi-level forms recurse on LL
-(the Mallat pyramid).  Every function runs on the device its input
-lives on, and is the plain version the 2-D kernels are held against
-(``kernels/ref.py``).
+Port of the 1-D and 2-D parts of ``repro.core.lifting``.  A 1-D level
+is the band-policy lifting cascade along the last axis
+(:mod:`repro_torch.core.schemes`); one 2-D level is the row transform
+(axis -1) followed by the column transform (axis -2) of both row bands;
+the multi-level forms recurse on the approximation (the Mallat
+pyramid).  Every function runs on the device its input lives on, and is
+the plain version the kernels are held against (``kernels/ref.py``).
 
 Dtype contract (:func:`promote_narrow`): int8, int16, uint8 and uint16
 promote to int32; int32 passes through.  int64 is REJECTED: the
@@ -14,11 +14,11 @@ reference runs JAX with x64 disabled, which narrows int64 input to
 int32 before lifting, while torch would lift it natively in int64 — so
 neither choice would silently match.  Callers cast to int32 explicitly.
 
-The 1-D and N-D pyramid types (:class:`WaveletPyramid`,
-:class:`PyramidND`) and their band geometry are here, because the codec
-reads and writes containers of every kind; the 1-D and N-D transforms
-themselves and ``checked=`` range certification are not ported yet
-(``ROADMAP.md``, Queue 1 items 3-5).
+The N-D pyramid type (:class:`PyramidND`) and its band geometry are
+here because the codec reads and writes containers of every kind; the
+N-D transform itself is not ported yet (``ROADMAP.md``, Queue 1 item
+5).  ``checked=`` range certification lives on the kernels' entry
+points (``kernels.ops``, ``kernels.fused2d``), not on this oracle.
 """
 from __future__ import annotations
 
@@ -67,6 +67,61 @@ def promote_narrow(x: Tensor) -> Tensor:
     raise TypeError(f"integer DWT requires an integer dtype, got {x.dtype}")
 
 
+def _shift_down(x: Tensor, k: int) -> Tensor:
+    """floor(x / 2**k) as an arithmetic right shift (multiplierless)."""
+    if x.is_floating_point() or x.is_complex() or x.dtype == torch.bool:
+        raise TypeError(f"integer DWT requires an integer dtype, got {x.dtype}")
+    return torch.bitwise_right_shift(x, k)
+
+
+# ---------------------------------------------------------------------------
+# The paper's (5,3) operators, verbatim — the hardware-model reference.
+# ---------------------------------------------------------------------------
+
+
+def predict(even: Tensor, even_next: Tensor, odd: Tensor) -> Tensor:
+    """eq. (5): d[n] = odd[n] - floor((even[n] + even[n+1]) / 2)."""
+    return odd - _shift_down(even + even_next, 1)
+
+
+def update(even: Tensor, d: Tensor, d_prev: Tensor, mode: str = "paper") -> Tensor:
+    """eq. (7): s[n] = even[n] + floor((d[n] + d[n-1]) / 4) (paper mode);
+    jpeg2000 mode adds the +2 offset before the shift."""
+    _check_mode(mode)
+    t = d + d_prev
+    if mode == "jpeg2000":
+        t = t + 2
+    return even + _shift_down(t, 2)
+
+
+def inv_update(s: Tensor, d: Tensor, d_prev: Tensor, mode: str = "paper") -> Tensor:
+    """eq. (8): even[n] = s[n] - floor((d[n] + d[n-1]) / 4) (+2 offset in
+    jpeg2000 mode) — the structural inverse of :func:`update`."""
+    _check_mode(mode)
+    t = d + d_prev
+    if mode == "jpeg2000":
+        t = t + 2
+    return s - _shift_down(t, 2)
+
+
+# ---------------------------------------------------------------------------
+# 1-D transform along the last axis (any registered scheme).
+# ---------------------------------------------------------------------------
+
+
+def dwt_fwd_1d(x: Tensor, mode: str = "paper", scheme="cdf53") -> Tuple[Tensor, Tensor]:
+    """One forward lifting level along the last axis: (s, d) with
+    len(s) = ceil(N/2), len(d) = floor(N/2); any N >= 2."""
+    _check_mode(mode)
+    return S.lift_fwd_axis(promote_narrow(x), scheme, axis=-1, mode=mode)
+
+
+def dwt_inv_1d(s: Tensor, d: Tensor, mode: str = "paper", scheme="cdf53") -> Tensor:
+    """One inverse lifting level (cdf53: eqs. 8-10) along the last axis."""
+    _check_mode(mode)
+    return S.lift_inv_axis(promote_narrow(s), promote_narrow(d), scheme, axis=-1, mode=mode)
+
+
 # ---------------------------------------------------------------------------
 # One 2-D level (rows then columns).
 # ---------------------------------------------------------------------------
@@ -102,7 +157,9 @@ def dwt_inv_2d(bands: Bands2D, mode: str = "paper", scheme="cdf53") -> Tensor:
 
 
 def _to_tensor(a, device) -> Tensor:
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    from repro_torch.kernels.backend import resolve_device
+
+    return torch.from_numpy(np.array(a, copy=True)).to(resolve_device(device))
 
 
 def _to_array(t: Tensor) -> np.ndarray:
@@ -124,10 +181,11 @@ class Pyramid2D(NamedTuple):
         return len(self.details)
 
     @classmethod
-    def from_numpy(cls, pyr, device="cpu") -> "Pyramid2D":
+    def from_numpy(cls, pyr, device="cuda") -> "Pyramid2D":
         """A tensor pyramid from any object with ``ll`` / ``details``
         whose leaves convert with ``np.asarray`` (a reference pyramid,
-        or the result of :meth:`to_numpy`)."""
+        or the result of :meth:`to_numpy`), on ``device`` — the card by
+        default, raising without one; ``device="cpu"`` for the CPU."""
         return cls(
             ll=_to_tensor(pyr.ll, device),
             details=tuple(tuple(_to_tensor(b, device) for b in lvl) for lvl in pyr.details),
@@ -152,9 +210,10 @@ class WaveletPyramid(NamedTuple):
         return len(self.details)
 
     @classmethod
-    def from_numpy(cls, pyr, device="cpu") -> "WaveletPyramid":
+    def from_numpy(cls, pyr, device="cuda") -> "WaveletPyramid":
         """A tensor pyramid from any object with ``approx`` / ``details``
-        (a reference pyramid, or the result of :meth:`to_numpy`)."""
+        (a reference pyramid, or the result of :meth:`to_numpy`), on
+        ``device`` — the card by default, raising without one."""
         return cls(
             approx=_to_tensor(pyr.approx, device),
             details=tuple(_to_tensor(d, device) for d in pyr.details),
@@ -166,6 +225,46 @@ class WaveletPyramid(NamedTuple):
             approx=_to_array(self.approx),
             details=tuple(_to_array(d) for d in self.details),
         )
+
+
+def dwt_fwd(x: Tensor, levels: int = 1, mode: str = "paper", scheme="cdf53") -> "WaveletPyramid":
+    """Multi-level 1-D forward transform along the last axis.  ``levels=0``
+    is the identity pyramid (no detail bands)."""
+    if levels < 0:
+        raise ValueError("levels must be >= 0")
+    s = promote_narrow(x)
+    details: List[Tensor] = []
+    for _ in range(levels):
+        if s.shape[-1] < 2:
+            raise ValueError(f"signal too short for {levels} levels (got {x.shape[-1]})")
+        s, d = S.lift_fwd_axis(s, scheme, axis=-1, mode=mode)
+        details.append(d)
+    return WaveletPyramid(approx=s, details=tuple(reversed(details)))
+
+
+def dwt_inv(pyr: "WaveletPyramid", mode: str = "paper", scheme="cdf53") -> Tensor:
+    """Multi-level 1-D inverse transform."""
+    s = promote_narrow(pyr.approx)
+    for d in pyr.details:  # coarsest first
+        s = S.lift_inv_axis(s, promote_narrow(d), scheme, axis=-1, mode=mode)
+    return s
+
+
+def dwt53_fwd_1d(x: Tensor, mode: str = "paper") -> Tuple[Tensor, Tensor]:
+    """(5,3) forward level: :func:`dwt_fwd_1d` with ``scheme="cdf53"``."""
+    return dwt_fwd_1d(x, mode=mode, scheme="cdf53")
+
+
+def dwt53_inv_1d(s: Tensor, d: Tensor, mode: str = "paper") -> Tensor:
+    return dwt_inv_1d(s, d, mode=mode, scheme="cdf53")
+
+
+def dwt53_fwd(x: Tensor, levels: int = 1, mode: str = "paper") -> "WaveletPyramid":
+    return dwt_fwd(x, levels=levels, mode=mode, scheme="cdf53")
+
+
+def dwt53_inv(pyr: "WaveletPyramid", mode: str = "paper") -> Tensor:
+    return dwt_inv(pyr, mode=mode, scheme="cdf53")
 
 
 class PyramidND(NamedTuple):
@@ -198,9 +297,10 @@ class PyramidND(NamedTuple):
         return nd
 
     @classmethod
-    def from_numpy(cls, pyr, device="cpu") -> "PyramidND":
+    def from_numpy(cls, pyr, device="cuda") -> "PyramidND":
         """A tensor pyramid from any object with ``approx`` / ``details``
-        (a reference pyramid, or the result of :meth:`to_numpy`)."""
+        (a reference pyramid, or the result of :meth:`to_numpy`), on
+        ``device`` — the card by default, raising without one."""
         return cls(
             approx=_to_tensor(pyr.approx, device),
             details=tuple(tuple(_to_tensor(b, device) for b in lvl) for lvl in pyr.details),
@@ -319,6 +419,34 @@ def band_sizes(n: int, levels: int) -> Tuple[int, Tuple[int, ...]]:
         cur = cur - d_len  # ceil(cur/2)
         sizes.append(d_len)
     return cur, tuple(reversed(sizes))
+
+
+def pack(pyr: WaveletPyramid) -> Tensor:
+    """Concatenate [approx, details coarsest->finest] along the last axis."""
+    return torch.cat((pyr.approx,) + tuple(pyr.details), dim=-1)
+
+
+def unpack(flat: Tensor, n: int, levels: int) -> WaveletPyramid:
+    """Inverse of :func:`pack` for an original signal length n."""
+    a_len, d_lens = band_sizes(n, levels)
+    details = []
+    off = a_len
+    for dl in d_lens:
+        details.append(flat[..., off : off + dl])
+        off += dl
+    return WaveletPyramid(approx=flat[..., :a_len], details=tuple(details))
+
+
+def max_levels(n: int) -> int:
+    """Deepest decomposition such that every level has >= 2 samples
+    (0 for n < 2)."""
+    lv = 0
+    while n >= 2:
+        n = n - n // 2
+        lv += 1
+        if n < 2:
+            break
+    return lv
 
 
 def max_levels_nd(shape: Tuple[int, ...]) -> int:

@@ -205,3 +205,36 @@ extern "C" int repro_whole_inv(int device, const int32_t* ll, const int32_t* lh,
   if ((e = launch_cols<true>(p0, p1, B, H, g, scratch, c, st)) != cudaSuccess) return e;
   return launch_rows(true, s_r, d_r, x, nullptr, B, H, W, g, scratch, c, st);
 }
+
+// The row pass alone over a (rows, n) signal — the 1-D level for what the
+// windowed kernels (lift1d.cu) do not take: lines of fewer than 8 pairs,
+// and schemes that do not commute with whole-point reflection on this
+// length (cdf22; haar on odd n).  Band-policy math, so every scheme and
+// every n >= 2 works; a line too long for shared memory is staged in
+// `scratch` (row_global), one block per line.  Returns a cudaError_t code.
+extern "C" int repro_rows_fwd(int device, const int32_t* x, int32_t* s, int32_t* d,
+                              int32_t* scratch, int rows, int n, int rb, int row_global,
+                              const int32_t* table, int table_len, void* stream) {
+  Cascade c;
+  cudaError_t e = parse_cascade(table, table_len, &c);
+  if (e != cudaSuccess) return e;
+  if (rows < 1 || n < 2 || rb < 1) return cudaErrorInvalidValue;
+  if ((e = cudaSetDevice(device)) != cudaSuccess) return e;
+  const Geometry g{rb, row_global, 1, 0};
+  return launch_rows(false, x, nullptr, s, d, 1, rows, n, g, scratch, c,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// Inverse row pass: s (rows, ceil(n/2)), d (rows, floor(n/2)) -> x (rows, n).
+extern "C" int repro_rows_inv(int device, const int32_t* s, const int32_t* d, int32_t* x,
+                              int32_t* scratch, int rows, int n, int rb, int row_global,
+                              const int32_t* table, int table_len, void* stream) {
+  Cascade c;
+  cudaError_t e = parse_cascade(table, table_len, &c);
+  if (e != cudaSuccess) return e;
+  if (rows < 1 || n < 2 || rb < 1) return cudaErrorInvalidValue;
+  if ((e = cudaSetDevice(device)) != cudaSuccess) return e;
+  const Geometry g{rb, row_global, 1, 0};
+  return launch_rows(true, s, d, x, nullptr, 1, rows, n, g, scratch, c,
+                     static_cast<cudaStream_t>(stream));
+}

@@ -40,7 +40,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-SOURCES = ("whole2d", "tiled2d", "rice")
+SOURCES = ("whole2d", "tiled2d", "rice", "lift1d")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,6 +50,8 @@ _SIGNATURES = {
     "whole2d": {
         "repro_whole_fwd": [_I] + [_P] * 8 + [_I] * 7 + [_P, _I, _P],
         "repro_whole_inv": [_I] + [_P] * 8 + [_I] * 7 + [_P, _I, _P],
+        "repro_rows_fwd": [_I] + [_P] * 4 + [_I] * 4 + [_P, _I, _P],
+        "repro_rows_inv": [_I] + [_P] * 4 + [_I] * 4 + [_P, _I, _P],
     },
     "tiled2d": {
         "repro_tiled_fwd": [_I] + [_P] * 5 + [_I] * 6 + [_P, _I, _P],
@@ -59,6 +61,10 @@ _SIGNATURES = {
         "repro_rice_encode": [_I] + [_P] * 4 + [_L, _L, _P],
         "repro_rice_compact": [_I] + [_P] * 4 + [_L, _P],
         "repro_rice_decode": [_I] + [_P] * 5 + [_L, _P],
+    },
+    "lift1d": {
+        "repro_lift1d_fwd": [_I] + [_P] * 3 + [_I] * 5 + [_P, _I, _P],
+        "repro_lift1d_inv": [_I] + [_P] * 3 + [_I] * 5 + [_P, _I, _P],
     },
 }
 

@@ -1,6 +1,6 @@
 """Dispatch policy, budgets and launch counters of the port's kernels.
 
-Port of ``repro.kernels.backend`` for the 2-D slice.  The policy is one
+Port of ``repro.kernels.backend``.  The policy is one
 rule: a transform runs on the device its input tensor lives on.
 
   * A CUDA tensor goes to the hand-written kernel (``csrc/``).  If the
@@ -14,10 +14,11 @@ argument: the tensor's device is the whole choice.
 
 Budgets come from the card (``torch.cuda.get_device_properties``): the
 shared memory one block may opt in to and the SM count.  On the CPU the
-same figures of an H100 SXM are used, so that :func:`pick_tile` and the
-whole-image/tiled choice (``fused2d.plan_2d``) are the same in the CPU
-tests as on the card.  None of the TPU's constants (its 16 MB VMEM
-default, six resident buffers, the lane-aligned 252 tile) is carried.
+same figures of an H100 SXM are used, so that :func:`pick_tile`,
+:func:`pick_blocks` and the whole-image/tiled choice
+(``fused2d.plan_2d``) are the same in the CPU tests as on the card.  None
+of the TPU's constants (its 16 MB VMEM default, six resident buffers,
+the lane-aligned 252 tile, the 8 x 256 1-D blocks) is carried.
 
 ``REPRO_DWT_TILE`` ("N" or "TH,TW") keeps its reference meaning: it
 forces the tiled engine for every tileable image and sets the tile —
@@ -147,6 +148,64 @@ def pick_tile(
 
 
 # ---------------------------------------------------------------------------
+# Row-pass geometry (csrc/whole2d.cu: the 2-D whole-image kernels and the
+# 1-D fallback).
+# ---------------------------------------------------------------------------
+
+_ROW_BLOCK_ELEMS = 4096  # a row-pass block stages about 16 KB of whole rows
+
+
+def row_geometry(rows: int, w: int, device: Optional[torch.device] = None) -> Dict[str, int]:
+    """Launch geometry of the row pass over ``rows`` lines of ``w``
+    samples: ``rb`` lines per block (about 16 KB of them), or one line per
+    block staged in a global scratch buffer of ``scratch`` int32 entries
+    when a line is too long for shared memory (``row_global``)."""
+    row_global = int(w * 4 > budgets(device)["smem_per_block"])
+    rb = 1 if row_global else max(1, min(rows, _ROW_BLOCK_ELEMS // w))
+    return {"rb": rb, "row_global": row_global, "scratch": rows * w if row_global else 0}
+
+
+# ---------------------------------------------------------------------------
+# Block geometry of the windowed 1-D kernels (csrc/lift1d.cu).
+# ---------------------------------------------------------------------------
+
+_MAX_BLOCK_PAIRS = 1024  # a tile of 2048 samples: the halo re-read is < 1%
+# a block's windows take at most an eighth of the SM's shared memory, so
+# eight 256-thread blocks (the SM's 2048 threads) can be resident
+_LINE_BLOCKS_PER_SM = 8
+_MIN_GRID_PER_SM = 4  # fewer rows per block until the grid has this many blocks per SM
+
+
+def _cdiv(a: int, b: int) -> int:
+    return (a + b - 1) // b
+
+
+def pick_blocks(
+    rows: int, pairs: int, halo: int, device: Optional[torch.device] = None
+) -> Tuple[int, int]:
+    """(block_rows, block_pairs) of a windowed 1-D level over ``rows``
+    lines of ``pairs`` core pairs, with ``halo`` extension samples per
+    side of each window (``2 * margin``).
+
+    ``block_pairs`` is the largest power of two up to 1024 whose one
+    int32 window ``(2 * block_pairs + 2 * halo) * 4`` bytes fits an eighth
+    of an SM's shared memory, never more than ``pairs``.  ``block_rows``
+    stacks as many windows as that share holds, never more than ``rows``,
+    and fewer where the grid would otherwise have under four blocks per
+    SM.  Derived from :func:`budgets`, not from the TPU's 8 x 256 blocks.
+    """
+    b = budgets(device)
+    share = b["smem_per_sm"] // _LINE_BLOCKS_PER_SM
+    bp = _MAX_BLOCK_PAIRS
+    while bp > 1 and (2 * bp + 2 * halo) * 4 > share:
+        bp //= 2
+    bp = max(1, min(bp, pairs))
+    rb = max(1, min(rows, share // ((2 * bp + 2 * halo) * 4)))
+    grid_rows = rows * _cdiv(pairs, bp) // (_MIN_GRID_PER_SM * b["sms"])
+    return max(1, min(rb, grid_rows)), bp
+
+
+# ---------------------------------------------------------------------------
 # Launch counters.
 # ---------------------------------------------------------------------------
 
@@ -155,7 +214,10 @@ class LaunchCounter:
     """Per-kernel launch counts.  Each kernel wrapper adds one where it
     launches its kernel and nowhere else, so a run can show that its
     main path went through the kernels; the plain versions never
-    count."""
+    count.  Names: ``whole2d_fwd`` / ``whole2d_inv``, ``tiled2d_fwd`` /
+    ``tiled2d_inv``, ``lift1d_fwd`` / ``lift1d_inv``, ``rows1d_fwd`` /
+    ``rows1d_inv`` (the 1-D row-pass fallback), ``rice_encode`` /
+    ``rice_compact`` / ``rice_decode``."""
 
     def __init__(self):
         self.counts: Dict[str, int] = {}

@@ -24,7 +24,9 @@ level launches a kernel or raises.
 :func:`dwt_fwd_2d_multi` / :func:`dwt_inv_2d_multi` chain the levels of
 the Mallat pyramid, fine levels tiled and coarse levels whole-image.
 Every path reproduces ``core.lifting`` (and so ``repro``) bit for bit,
-for every scheme, both rounding modes and every shape >= (2, 2).
+for every scheme, both rounding modes and every shape >= (2, 2).  Every
+public function takes ``checked=`` (``core/ranges.py``), as in the
+reference.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.core import lifting as _lift
+from repro_torch.core import ranges as _ranges
 from repro_torch.core import schemes as S
 from repro_torch.core.lifting import Bands2D, Pyramid2D, check_levels_2d
 from repro_torch.kernels import _build
@@ -59,8 +62,6 @@ def _inv2d_math(ll: Tensor, lh: Tensor, hl: Tensor, hh: Tensor, mode: str, schem
 # Whole-image kernels (csrc/whole2d.cu).
 # ---------------------------------------------------------------------------
 
-# a row-pass block stages about this many samples (16 KB) of whole rows
-_ROW_BLOCK_ELEMS = 4096
 _COL_STRIP = 32  # columns per column-pass block: one warp's worth
 
 
@@ -80,17 +81,15 @@ def whole_geometry(
     ``scratch`` int32 entries, shared by both passes.
     """
     limit = _backend.budgets(device)["smem_per_block"]
-    row_global = int(w * 4 > limit)
-    rb = 1 if row_global else max(1, min(h, _ROW_BLOCK_ELEMS // w))
+    rows = _backend.row_geometry(h, w, device)
+    row_global, rb = rows["row_global"], rows["rb"]
     cw = _COL_STRIP
     while cw > 1 and h * cw * 4 > limit:
         cw //= 2
     col_global = int(h * cw * 4 > limit)
     if col_global:
         cw = _COL_STRIP
-    scratch = 0
-    if row_global:
-        scratch = _cdiv(h, rb) * b * rb * w
+    scratch = b * rows["scratch"]
     if col_global:
         strips = _cdiv(w - w // 2, cw) + _cdiv(w // 2, cw)
         scratch = max(scratch, strips * b * h * cw)
@@ -198,11 +197,12 @@ def _inv2d_level(ll3, lh3, hl3, hh3, sch: S.LiftingScheme, mode: str):
     return inv2d_whole(ll3, lh3, hl3, hh3, mode, sch)
 
 
-def plan_2d(h: int, w: int, device="cpu", scheme="cdf53") -> str:
+def plan_2d(h: int, w: int, device="cuda", scheme="cdf53") -> str:
     """Name the path a (h, w) level takes on ``device``: ``whole-cuda``,
     ``tiled-cuda``, ``whole-torch`` or ``tiled-torch`` (the ``-torch``
-    names are the plain versions a CPU tensor runs)."""
-    dev = torch.device(device)
+    names are the plain versions a CPU tensor runs).  The default is the
+    card; without one it raises."""
+    dev = _backend.resolve_device(device)
     kind = "tiled" if _use_tiled(h, w, S.get_scheme(scheme), dev) else "whole"
     return f"{kind}-{'cuda' if dev.type == 'cuda' else 'torch'}"
 
@@ -217,29 +217,42 @@ def _flat(a: Tensor, lead: Tuple[int, ...]) -> Tensor:
     return a.reshape((-1,) + tuple(a.shape[len(lead):])).to(_compute_dtype(a.dtype)).contiguous()
 
 
-def dwt_fwd_2d(x: Tensor, mode: str = "paper", scheme="cdf53") -> Bands2D:
+def dwt_fwd_2d(x: Tensor, mode: str = "paper", scheme="cdf53", checked=None) -> Bands2D:
     """One 2-D level over the last two axes (rows then columns), on the
-    device ``x`` lives on."""
+    device ``x`` lives on.  ``checked=True`` (or ``REPRO_DWT_CHECKED=1``)
+    certifies the data against the derived range bounds and raises
+    ``IntegerOverflowError`` instead of ever returning wrapped bands
+    (``core/ranges.py``)."""
     S.check_mode(mode)
     sch = S.get_scheme(scheme)
     if x.ndim < 2 or x.shape[-1] < 2 or x.shape[-2] < 2:
         raise ValueError(f"need a (..., H>=2, W>=2) input, got {tuple(x.shape)}")
+    if _ranges.checked_enabled(checked):
+        return _ranges.run_checked(
+            lambda a: dwt_fwd_2d(a, mode=mode, scheme=sch, checked=False),
+            x, scheme=sch, levels=1, mode=mode, ndim=2, label="kernels.dwt_fwd_2d",
+        )
     lead = tuple(x.shape[:-2])
     bands = _fwd2d_level(_flat(x, lead), sch, mode)
     return Bands2D(*(b.reshape(lead + tuple(b.shape[1:])) for b in bands))
 
 
-def dwt_inv_2d(bands: Bands2D, mode: str = "paper", scheme="cdf53") -> Tensor:
+def dwt_inv_2d(bands: Bands2D, mode: str = "paper", scheme="cdf53", checked=None) -> Tensor:
     """Inverse of :func:`dwt_fwd_2d` (columns then rows)."""
     S.check_mode(mode)
     sch = S.get_scheme(scheme)
+    if _ranges.checked_enabled(checked):
+        return _ranges.run_checked_inv(
+            lambda b: dwt_inv_2d(b, mode=mode, scheme=sch, checked=False),
+            bands, scheme=sch, levels=1, mode=mode, ndim=2, label="kernels.dwt_inv_2d",
+        )
     lead = tuple(bands.ll.shape[:-2])
     x = _inv2d_level(*(_flat(b, lead) for b in bands), sch, mode)
     return x.reshape(lead + tuple(x.shape[1:]))
 
 
 def dwt_fwd_2d_multi(
-    x: Tensor, levels: int = 1, mode: str = "paper", scheme="cdf53"
+    x: Tensor, levels: int = 1, mode: str = "paper", scheme="cdf53", checked=None
 ) -> Pyramid2D:
     """Multi-level 2-D forward transform (Mallat pyramid), fine levels
     tiled and coarse levels whole-image, on the device ``x`` lives on."""
@@ -248,6 +261,11 @@ def dwt_fwd_2d_multi(
     if x.ndim < 2:
         raise ValueError(f"need a (..., H, W) input, got {tuple(x.shape)}")
     check_levels_2d(x.shape[-2], x.shape[-1], levels)
+    if _ranges.checked_enabled(checked):
+        return _ranges.run_checked(
+            lambda a: dwt_fwd_2d_multi(a, levels=levels, mode=mode, scheme=sch, checked=False),
+            x, scheme=sch, levels=levels, mode=mode, ndim=2, label="kernels.dwt_fwd_2d_multi",
+        )
     lead = tuple(x.shape[:-2])
     ll = _flat(x, lead)
     details: List[Tuple[Tensor, Tensor, Tensor]] = []
@@ -264,10 +282,18 @@ def dwt_fwd_2d_multi(
     )
 
 
-def dwt_inv_2d_multi(pyr: Pyramid2D, mode: str = "paper", scheme="cdf53") -> Tensor:
+def dwt_inv_2d_multi(
+    pyr: Pyramid2D, mode: str = "paper", scheme="cdf53", checked=None
+) -> Tensor:
     """Inverse of :func:`dwt_fwd_2d_multi`."""
     S.check_mode(mode)
     sch = S.get_scheme(scheme)
+    if _ranges.checked_enabled(checked):
+        return _ranges.run_checked_inv(
+            lambda p: dwt_inv_2d_multi(p, mode=mode, scheme=sch, checked=False),
+            pyr, scheme=sch, levels=len(pyr.details), mode=mode, ndim=2,
+            label="kernels.dwt_inv_2d_multi",
+        )
     ll = pyr.ll
     h, w = ll.shape[-2], ll.shape[-1]
     for lh, hl, hh in pyr.details:  # validate band geometry coarsest-first

@@ -1,13 +1,46 @@
-"""Dtype policy of the port's kernel wrappers.
+"""The 1-D integer lifting DWT: level dispatch, multi-level pyramids, checks.
 
-Port of ``repro.kernels.ops._compute_dtype`` only; the fused 1-D path of
-that module is not ported yet (``ROADMAP.md``, Queue 1).
+Port of ``repro.kernels.ops``.  A transform runs where its input lives.
+One level over a ``(rows, n)`` int32 stream takes one of two engines:
+
+  * **windowed** (``kernels/dwt53.py``, ``csrc/lift1d.cu``) — halo'd tiles
+    of every line, one pass over device memory; taken when the line has
+    at least ``_MIN_KERNEL_PAIRS`` pairs and the scheme windows on its
+    length (``scheme.can_window``).
+  * **row pass** (``csrc/whole2d.cu``) — whole lines with band-policy
+    reads at the borders; it takes every scheme and every ``n >= 2``, so
+    short lines, ``cdf22`` at any length and ``haar`` on odd lengths stay
+    on a kernel.  Where the reference falls back to in-graph band-policy
+    math, the port runs this kernel on a CUDA tensor.
+
+Each engine is a kernel for a CUDA tensor and its plain PyTorch version
+for a CPU tensor.  Both give the oracle's bits (``core.lifting``), and
+so ``repro``'s, for every scheme, both rounding modes and every n >= 2.
+
+The public functions flatten leading dims, promote narrow dtypes to
+int32 once (:func:`_compute_dtype`), validate lengths before any launch,
+and take ``checked=`` (or ``REPRO_DWT_CHECKED``): certify the data
+against the derived range bounds (``core/ranges.py``) and raise
+``IntegerOverflowError`` instead of ever returning wrapped bands.
 """
 from __future__ import annotations
 
+from typing import List, Tuple
+
 import torch
 
+from repro_torch.core import ranges as _ranges
+from repro_torch.core import schemes as S
+from repro_torch.core.lifting import WaveletPyramid
+from repro_torch.kernels import backend as _backend
+from repro_torch.kernels import dwt53 as _k
+
+Tensor = torch.Tensor
+
 _TO_INT32 = (torch.int8, torch.int16, torch.int32, torch.uint8, torch.uint16)
+
+# below this many pairs a line takes the row pass, as in the reference
+_MIN_KERNEL_PAIRS = 8
 
 
 def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -27,3 +60,186 @@ def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
             "with .to(torch.int32) first"
         )
     raise TypeError(f"integer DWT requires an int dtype, got {dtype}")
+
+
+def _rows(a: Tensor) -> Tensor:
+    """(..., n) -> contiguous (rows, n) in the compute dtype."""
+    return a.reshape(-1, a.shape[-1]).to(_compute_dtype(a.dtype)).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# One level over (rows, n) int32 streams.
+# ---------------------------------------------------------------------------
+
+
+def _windowed(sch: S.LiftingScheme, n: int) -> bool:
+    return n // 2 >= _MIN_KERNEL_PAIRS and sch.can_window(n)
+
+
+def _fwd_level(xf: Tensor, sch: S.LiftingScheme, mode: str) -> Tuple[Tensor, Tensor]:
+    """One forward level over a (rows, n) int32 stream; returns (s, d)."""
+    rows, n = xf.shape
+    if rows == 0:
+        return xf[:, : n - n // 2], xf[:, : n // 2]
+    if not _windowed(sch, n):
+        return _k.rows_fwd(xf, mode, sch)
+    rb, bp = _backend.pick_blocks(rows, n - n // 2, sch.halo, xf.device)
+    return _k.lift_fwd_windows(xf, mode, rb, bp, sch)
+
+
+def _inv_level(sf: Tensor, df: Tensor, sch: S.LiftingScheme, mode: str) -> Tensor:
+    """One inverse level over (rows, n_e) / (rows, n_o) int32 bands."""
+    rows, n_e = sf.shape
+    n = n_e + df.shape[-1]
+    if rows == 0:
+        return sf.new_empty((0, n))
+    if not _windowed(sch, n):
+        return _k.rows_inv(sf, df, mode, sch)
+    rb, bp = _backend.pick_blocks(rows, n_e, 2 * sch.inv_margin, sf.device)
+    return _k.lift_inv_windows(sf, df, mode, rb, bp, sch)
+
+
+def plan_1d(n: int, device="cuda", scheme="cdf53") -> str:
+    """Name the path a length-n level takes on ``device``:
+    ``windowed-cuda``, ``rows-cuda``, ``windowed-torch`` or ``rows-torch``
+    (the ``-torch`` names are the plain versions a CPU tensor runs)."""
+    kind = "windowed" if _windowed(S.get_scheme(scheme), n) else "rows"
+    return f"{kind}-{'cuda' if _backend.resolve_device(device).type == 'cuda' else 'torch'}"
+
+
+# ---------------------------------------------------------------------------
+# Public API.
+# ---------------------------------------------------------------------------
+
+
+def _check_lead(a: Tensor, b: Tensor) -> None:
+    if tuple(a.shape[:-1]) != tuple(b.shape[:-1]):
+        raise ValueError(
+            f"band lead dims differ: {tuple(a.shape[:-1])} vs {tuple(b.shape[:-1])}"
+        )
+
+
+def dwt_fwd_1d(
+    x: Tensor, mode: str = "paper", scheme="cdf53", checked=None
+) -> Tuple[Tensor, Tensor]:
+    """One forward level along the last axis, on the device ``x`` lives
+    on.  N >= 2; returns (s, d) with len(s) = ceil(N/2), len(d) =
+    floor(N/2), bit-exact vs ``core.lifting.dwt_fwd_1d``.
+
+    ``checked=True`` (or ``REPRO_DWT_CHECKED=1``) certifies the data
+    against the derived range bounds first and raises
+    :class:`~repro_torch.resilience.errors.IntegerOverflowError` instead
+    of ever returning wrapped bands (``core/ranges.py``) — the same
+    contract on every public transform of this package.
+    """
+    S.check_mode(mode)
+    sch = S.get_scheme(scheme)
+    if x.ndim < 1 or x.shape[-1] < 2:
+        raise ValueError("need at least 2 samples")
+    if _ranges.checked_enabled(checked):
+        return _ranges.run_checked(
+            lambda a: dwt_fwd_1d(a, mode=mode, scheme=sch, checked=False),
+            x, scheme=sch, levels=1, mode=mode, ndim=1, label="kernels.dwt_fwd_1d",
+        )
+    lead = tuple(x.shape[:-1])
+    s, d = _fwd_level(_rows(x), sch, mode)
+    return s.reshape(lead + (s.shape[-1],)), d.reshape(lead + (d.shape[-1],))
+
+
+def dwt_inv_1d(
+    s: Tensor, d: Tensor, mode: str = "paper", scheme="cdf53", checked=None
+) -> Tensor:
+    """One inverse level along the last axis; bit-exact vs
+    ``core.lifting.dwt_inv_1d``."""
+    S.check_mode(mode)
+    sch = S.get_scheme(scheme)
+    if s.shape[-1] - d.shape[-1] not in (0, 1):
+        raise ValueError("band length mismatch")
+    _check_lead(s, d)
+    if _ranges.checked_enabled(checked):
+        return _ranges.run_checked_inv(
+            lambda t: dwt_inv_1d(t[0], t[1], mode=mode, scheme=sch, checked=False),
+            (s, d), scheme=sch, levels=1, mode=mode, ndim=1, label="kernels.dwt_inv_1d",
+        )
+    x = _inv_level(_rows(s), _rows(d), sch, mode)
+    return x.reshape(tuple(s.shape[:-1]) + (x.shape[-1],))
+
+
+def dwt_fwd(
+    x: Tensor, levels: int = 1, mode: str = "paper", scheme="cdf53", checked=None
+) -> WaveletPyramid:
+    """Multi-level forward transform along the last axis: the streams stay
+    on the device between levels, flattened and promoted once.
+
+    ``levels=0`` is the identity pyramid, so ``levels=max_levels(n)``
+    loops are safe on degenerate shapes.
+    """
+    S.check_mode(mode)
+    sch = S.get_scheme(scheme)
+    if levels < 0:
+        raise ValueError("levels must be >= 0")
+    n = x.shape[-1]
+    for _ in range(levels):
+        if n < 2:
+            raise ValueError(f"signal too short for {levels} levels (got {x.shape[-1]})")
+        n = n - n // 2
+    if _ranges.checked_enabled(checked):
+        return _ranges.run_checked(
+            lambda a: dwt_fwd(a, levels=levels, mode=mode, scheme=sch, checked=False),
+            x, scheme=sch, levels=levels, mode=mode, ndim=1, label="kernels.dwt_fwd",
+        )
+    lead = tuple(x.shape[:-1])
+    s = _rows(x)
+    details: List[Tensor] = []
+    for _ in range(levels):
+        s, d = _fwd_level(s, sch, mode)
+        details.append(d)
+    return WaveletPyramid(
+        approx=s.reshape(lead + (s.shape[-1],)),
+        details=tuple(d.reshape(lead + (d.shape[-1],)) for d in reversed(details)),
+    )
+
+
+def dwt_inv(pyr: WaveletPyramid, mode: str = "paper", scheme="cdf53", checked=None) -> Tensor:
+    """Multi-level inverse transform; band lengths are validated per level
+    before any launch, so a malformed pyramid raises the reference's
+    ``ValueError`` on every device."""
+    S.check_mode(mode)
+    sch = S.get_scheme(scheme)
+    if _ranges.checked_enabled(checked):
+        return _ranges.run_checked_inv(
+            lambda p: dwt_inv(p, mode=mode, scheme=sch, checked=False),
+            pyr, scheme=sch, levels=pyr.levels, mode=mode, ndim=1, label="kernels.dwt_inv",
+        )
+    n = pyr.approx.shape[-1]
+    for d in pyr.details:  # coarsest first
+        if n - d.shape[-1] not in (0, 1):
+            raise ValueError(f"band length mismatch: s={n}, d={d.shape[-1]}")
+        _check_lead(pyr.approx, d)
+        n = n + d.shape[-1]
+    lead = tuple(pyr.approx.shape[:-1])
+    s = _rows(pyr.approx)
+    for d in pyr.details:  # coarsest first
+        s = _inv_level(s, _rows(d), sch, mode)
+    return s.reshape(lead + (s.shape[-1],))
+
+
+# ---------------------------------------------------------------------------
+# (5,3) aliases — the seed's public names.
+# ---------------------------------------------------------------------------
+
+
+def dwt53_fwd_1d(x: Tensor, mode: str = "paper") -> Tuple[Tensor, Tensor]:
+    return dwt_fwd_1d(x, mode=mode, scheme="cdf53")
+
+
+def dwt53_inv_1d(s: Tensor, d: Tensor, mode: str = "paper") -> Tensor:
+    return dwt_inv_1d(s, d, mode=mode, scheme="cdf53")
+
+
+def dwt53_fwd(x: Tensor, levels: int = 1, mode: str = "paper") -> WaveletPyramid:
+    return dwt_fwd(x, levels=levels, mode=mode, scheme="cdf53")
+
+
+def dwt53_inv(pyr: WaveletPyramid, mode: str = "paper") -> Tensor:
+    return dwt_inv(pyr, mode=mode, scheme="cdf53")

@@ -32,10 +32,14 @@ quarantines that request alone.  A kernel that fails to build or launch
 asynchronous CUDA fault) is neither: it propagates out of
 :meth:`WaveletServeEngine.step`, and the batch goes back to its queue.
 
-Not ported yet, and refused with ``NotImplementedError``:
-``checked=True`` (ROADMAP.md Queue 1, item 4: checked ranges), 3-D
-buckets (item 5: the 3-D engine) and ``mesh=`` (item 7: the sharded
-transform).
+``checked=True`` (or ``REPRO_DWT_CHECKED``) certifies every request at
+submit, as the reference: one host min/max and a cascade trace
+(``core.ranges.assert_interval_safe``) reject a request whose samples
+could wrap a lifting intermediate before it rides a batch.
+
+Not ported yet, and refused with ``NotImplementedError``: 3-D buckets
+(ROADMAP.md Queue 1, item 5: the 3-D engine) and ``mesh=`` (item 7: the
+sharded transform).
 """
 from __future__ import annotations
 
@@ -47,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.core import ranges as _ranges
 from repro_torch.kernels._build import is_kernel_fault
 from repro_torch.resilience import inject
 from repro_torch.resilience.errors import ResilienceWarning, RetryExhaustedError, RetryWarning
@@ -56,7 +61,6 @@ from repro_torch.serve.scheduler import BucketScheduler
 Shape = Tuple[int, ...]
 
 _NOT_PORTED = {
-    "checked": "ROADMAP.md Queue 1 item 4 (checked ranges)",
     "3-D buckets": "ROADMAP.md Queue 1 item 5 (the 3-D engine)",
     "mesh": "ROADMAP.md Queue 1 item 7 (the sharded transform)",
 }
@@ -113,15 +117,13 @@ class WaveletServeEngine:
     deadline_s: Optional[float] = None  # per-request deadline (from submit)
     max_retries: int = 2  # transform retries after the first attempt
     retry_backoff_s: float = 0.05  # backoff base: 1x, 2x, 4x, ...
-    checked: Optional[bool] = None
+    checked: Optional[bool] = None  # range-certify at submit (None: env)
     executor: TransformExecutor = field(default_factory=TransformExecutor)
 
     def __post_init__(self):
         from repro_torch.core import lifting as _lifting
         from repro_torch.core import schemes as _schemes
 
-        if self.checked:
-            raise _not_ported("checked")
         if self.mesh is not None:
             raise _not_ported("mesh")
         if self.batch_slots < 1:
@@ -212,7 +214,22 @@ class WaveletServeEngine:
                 "integer DWT serving requires integer samples, got "
                 f"{req.image.dtype}; quantize client-side before submitting"
             )
-        self.scheduler.submit(req)  # ValueError if no bucket; sheds past max_queue
+        bucket = self.scheduler.route(req.image.shape)  # ValueError if none
+        if _ranges.checked_enabled(self.checked) and req.image.size:
+            # admission-time range certification: reject a request whose
+            # samples could wrap a lifting intermediate BEFORE it rides a
+            # batch (one host min/max + a cascade trace, no device work)
+            _ranges.assert_interval_safe(
+                int(req.image.min()),
+                int(req.image.max()),
+                scheme=self.scheme,
+                levels=self.levels,
+                dtype=np.int32,  # step() batches every bucket as int32
+                mode=self.mode,
+                ndim=len(bucket),
+                label=f"serve.submit(request {req.uid})",
+            )
+        self.scheduler.submit(req)  # sheds (LoadShedError) past max_queue
 
     # -- execution ----------------------------------------------------------
 

@@ -26,6 +26,7 @@ from repro_torch.codec import progressive as TP
 from repro_torch.codec import rice as TR
 from repro_torch.codec import stream as TS
 from repro_torch.core import lifting as TL
+from repro_torch import kernels as TK
 
 SCHEMES = ("cdf53", "haar", "cdf22", "97m")
 MODES = ("paper", "jpeg2000")
@@ -218,14 +219,14 @@ def _pyramids(kind, scheme, mode, seed):
     if kind == "1d":
         x = jnp.asarray(rng.integers(-4096, 4096, (3, 41)), jnp.int32)
         rp = RK.dwt_fwd(x, levels=3, mode=mode, scheme=scheme)
-        return rp, TL.WaveletPyramid.from_numpy(rp), {}
+        return rp, TL.WaveletPyramid.from_numpy(rp, device="cpu"), {}
     if kind == "2d":
         x = jnp.asarray(rng.integers(-4096, 4096, (2, 19, 23)), jnp.int32)
         rp = RK.dwt_fwd_2d_multi(x, levels=2, mode=mode, scheme=scheme)
-        return rp, TL.Pyramid2D.from_numpy(rp), {}
+        return rp, TL.Pyramid2D.from_numpy(rp, device="cpu"), {}
     x = jnp.asarray(rng.integers(-4096, 4096, (6, 9, 10)), jnp.int32)
     rp = RK.dwt_fwd_nd(x, levels=2, mode=mode, scheme=scheme, ndim=3)
-    return rp, TL.PyramidND.from_numpy(rp), {}
+    return rp, TL.PyramidND.from_numpy(rp, device="cpu"), {}
 
 
 def _assert_same_pyramid(port_pyr, ref_pyr):
@@ -259,7 +260,7 @@ def test_container_bytes_equal_the_reference_both_ways(kind, scheme, mode):
 @pytest.mark.parametrize("dt", [np.int8, np.int16])
 def test_container_narrow_dtypes_equal_the_reference(dt):
     rp = RL.WaveletPyramid(approx=jnp.asarray([[1, -2, 3]], dt), details=(jnp.asarray([[4, -5]], dt),))
-    tp = TL.WaveletPyramid.from_numpy(rp)
+    tp = TL.WaveletPyramid.from_numpy(rp, device="cpu")
     want = RC.encode_pyramid(rp)
     assert TC.encode_pyramid(tp) == want
     dec = TC.decode_pyramid(want, device="cpu")
@@ -270,13 +271,13 @@ def test_container_narrow_dtypes_equal_the_reference(dt):
     rp2 = RK.dwt_fwd_2d_multi(x, levels=1)
     rp2 = RL.Pyramid2D(ll=rp2.ll.astype(dt), details=tuple(tuple(b.astype(dt) for b in lvl)
                                                             for lvl in rp2.details))
-    assert TC.encode_pyramid(TL.Pyramid2D.from_numpy(rp2)) == RC.encode_pyramid(rp2)
+    assert TC.encode_pyramid(TL.Pyramid2D.from_numpy(rp2, device="cpu")) == RC.encode_pyramid(rp2)
 
 
 def test_container_levels_zero_and_extremes_equal_the_reference():
     rng = np.random.default_rng(9)
     rp = RL.dwt_fwd_nd(jnp.asarray(rng.integers(0, 9, (4, 4, 4)), jnp.int32), levels=0, ndim=3)
-    tp = TL.PyramidND.from_numpy(rp)
+    tp = TL.PyramidND.from_numpy(rp, device="cpu")
     want = RC.encode_pyramid(rp, ndim=3)
     assert TC.encode_pyramid(tp, ndim=3) == want
     dec = TC.decode_pyramid(want, device="cpu")
@@ -285,10 +286,10 @@ def test_container_levels_zero_and_extremes_equal_the_reference():
         TC.encode_pyramid(tp)  # levels=0 ND needs the hint
     ext = RL.WaveletPyramid(approx=jnp.asarray([[I32_MIN, I32_MAX, 0, -1]], jnp.int32),
                             details=(jnp.asarray([[I32_MAX, I32_MIN, 1]], jnp.int32),))
-    assert TC.encode_pyramid(TL.WaveletPyramid.from_numpy(ext)) == RC.encode_pyramid(ext)
+    assert TC.encode_pyramid(TL.WaveletPyramid.from_numpy(ext, device="cpu")) == RC.encode_pyramid(ext)
     x = jnp.full((64, 64), 123, jnp.int32)
     const = RK.dwt_fwd_2d_multi(x, levels=2)
-    assert TC.encode_pyramid(TL.Pyramid2D.from_numpy(const)) == RC.encode_pyramid(const)
+    assert TC.encode_pyramid(TL.Pyramid2D.from_numpy(const, device="cpu")) == RC.encode_pyramid(const)
 
 
 def test_container_rejects_what_the_reference_rejects():
@@ -335,17 +336,53 @@ def test_corruption_gives_the_same_typed_outcome(fmt):
             lambda: RC.decode_pyramid_partial(data))
 
 
-def test_checked_encode_refuses_naming_the_roadmap_item(monkeypatch):
-    _, tp, _ = _pyramids("2d", "cdf53", "paper", seed=12)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        TC.encode_pyramid(tp, checked=True)
-    monkeypatch.setenv("REPRO_DWT_CHECKED", "1")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        TC.encode_batch(tp)
-    assert TC.encode_pyramid(tp, checked=False) == RC.encode_pyramid(
-        RL.Pyramid2D(ll=jnp.asarray(tp.ll.numpy()),
-                     details=tuple(tuple(jnp.asarray(b.numpy()) for b in lvl)
-                                   for lvl in tp.details)), checked=False)
+def _outcome_of(fn):
+    """"ok", or the class name of what ``fn`` raised."""
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001
+        return type(e).__name__
+    return "ok"
+
+
+@pytest.mark.parametrize("kind", ["1d", "2d"])
+def test_checked_encode_certifies_like_the_reference(kind, monkeypatch):
+    """``checked=`` encode raises IntegerOverflowError on exactly the
+    pyramids the reference rejects: bands just inside and just outside
+    the certificate's band envelope, by keyword and by the env toggle."""
+    from repro.core import ranges as RR_
+
+    _, tp, _ = _pyramids(kind, "97m", "jpeg2000", seed=12)
+    levels = len(tp.details)
+    nd = 1 if kind == "1d" else 2
+    cert = RR_.range_certificate("97m", levels, np.int32, mode="jpeg2000", ndim=nd)
+    for bump in (cert.band_hi, cert.band_hi + 1, cert.band_lo, cert.band_lo - 1):
+        leaves = TC._leaves(tp)
+        first = leaves[-1].clone()
+        first.view(-1)[0] = bump
+        if kind == "1d":
+            pyr = TL.WaveletPyramid(approx=tp.approx, details=tp.details[:-1] + (first,))
+            ref = RL.WaveletPyramid(approx=jnp.asarray(tp.approx.numpy()),
+                                    details=tuple(jnp.asarray(d.numpy()) for d in pyr.details))
+        else:
+            last = tp.details[-1][:2] + (first,)
+            pyr = TL.Pyramid2D(ll=tp.ll, details=tp.details[:-1] + (last,))
+            ref = RL.Pyramid2D(ll=jnp.asarray(tp.ll.numpy()),
+                               details=tuple(tuple(jnp.asarray(b.numpy()) for b in lvl)
+                                             for lvl in pyr.details))
+        kw = dict(scheme="97m", mode="jpeg2000")
+        want = _outcome_of(lambda: RC.encode_pyramid(ref, checked=True, **kw))
+        assert _outcome_of(lambda: TC.encode_pyramid(pyr, checked=True, **kw)) == want, bump
+        assert want == ("ok" if cert.band_lo <= bump <= cert.band_hi else "IntegerOverflowError")
+        monkeypatch.setenv("REPRO_DWT_CHECKED", "1")
+        assert _outcome_of(lambda: TC.encode_pyramid(pyr, **kw)) == want
+        monkeypatch.delenv("REPRO_DWT_CHECKED")
+        if want == "ok":
+            assert TC.encode_pyramid(pyr, checked=True, **kw) == RC.encode_pyramid(
+                ref, checked=True, **kw)
+        else:  # the check is skipped only when asked to be
+            assert TC.encode_pyramid(pyr, checked=False, **kw) == RC.encode_pyramid(
+                ref, checked=False, **kw)
 
 
 def test_inverse_transform_runs_2d_and_names_what_is_not_ported():
@@ -354,10 +391,27 @@ def test_inverse_transform_runs_2d_and_names_what_is_not_ported():
     np.testing.assert_array_equal(TC.inverse_transform(dec).numpy(),
                                   np.asarray(RC.inverse_transform(RC.decode_pyramid(
                                       RC.encode_pyramid(rp, scheme="97m")))))
-    for kind, item in (("1d", "Queue 1 item 3"), ("3d", "Queue 1 item 5")):
-        rp, _, _ = _pyramids(kind, "cdf53", "paper", seed=14)
-        with pytest.raises(NotImplementedError, match=item):
-            TC.inverse_transform(TC.decode_pyramid(RC.encode_pyramid(rp), device="cpu"))
+    rp, _, _ = _pyramids("3d", "cdf53", "paper", seed=14)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        TC.inverse_transform(TC.decode_pyramid(RC.encode_pyramid(rp), device="cpu"))
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_1d_inverse_transform_equals_the_reference(scheme, mode):
+    """A 1-D container decoded by the port and inverted on the CPU gives
+    the reference's reconstruction, which is the input, for every scheme;
+    the blobs are the reference's (both ways)."""
+    rng = np.random.default_rng(19 + len(scheme))
+    x = rng.integers(-4096, 4096, (3, 1003)).astype(np.int32)
+    rp = RK.dwt_fwd(jnp.asarray(x), levels=4, mode=mode, scheme=scheme)
+    blob = RC.encode_pyramid(rp, scheme=scheme, mode=mode)
+    tp = TK.dwt_fwd(torch.from_numpy(x), levels=4, mode=mode, scheme=scheme)
+    assert TC.encode_pyramid(tp, scheme=scheme, mode=mode) == blob
+    got = TC.inverse_transform(TC.decode_pyramid(blob, device="cpu"))
+    want = np.asarray(RC.inverse_transform(RC.decode_pyramid(blob)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), x)
 
 
 def test_batch_containers_equal_the_reference():
@@ -437,6 +491,25 @@ def test_2d_stream_bytes_equal_the_reference(scheme):
     assert list(TS.iter_frames(data)) == list(RS.iter_frames(data))
 
 
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_1d_stream_bytes_equal_the_reference(scheme):
+    """WZRS streams of 1-D chunks (levels clamped per chunk, leading dims
+    batched) are the reference's byte for byte, and each decodes in the
+    other package to its chunk."""
+    rng = np.random.default_rng(23)
+    chunks = [rng.integers(-3000, 3000, shape).astype(np.int32)
+              for shape in ((2, 64), (3, 37), (1, 5), (200,))]
+    enc_r = RS.StreamEncoder(levels=3, scheme=scheme, mode="jpeg2000", ndim=1)
+    enc_t = TS.StreamEncoder(levels=3, scheme=scheme, mode="jpeg2000", ndim=1, device="cpu")
+    want = b"".join(enc_r.encode(chunks))
+    got = b"".join(enc_t.encode(chunks))
+    assert got == want
+    for a, b in zip(TS.decode_stream(want, device="cpu"), chunks):
+        np.testing.assert_array_equal(a.numpy(), b)
+    for a, b in zip(RS.decode_stream(got), chunks):
+        np.testing.assert_array_equal(np.asarray(a), b)
+
+
 def test_stream_errors_and_unported_dimensions():
     img = np.random.default_rng(18).integers(-99, 99, (4, 8)).astype(np.int32)
     data = b"".join(RS.encode_volume(img, slab=2, levels=1))
@@ -446,9 +519,9 @@ def test_stream_errors_and_unported_dimensions():
         list(TS.decode_stream(b"XXXX" + data[4:], device="cpu"))
     with pytest.raises(TypeError, match="integer"):
         TS.StreamEncoder(levels=1, device="cpu").encode_frame(np.ones((8, 8), np.float32))
-    for ndim, item in ((1, "Queue 1 item 3"), (3, "Queue 1 item 5")):
-        with pytest.raises(NotImplementedError, match=item):
-            TS.StreamEncoder(levels=1, ndim=ndim, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        TS.StreamEncoder(levels=1, ndim=3, device="cpu")
+    TS.StreamEncoder(levels=1, ndim=1, device="cpu")  # 1-D frames are ported
 
 
 def test_package_exports_match_the_reference():

@@ -164,3 +164,66 @@ def test_cuda_encoded_engine_serves_what_the_cpu_engine_serves(cuda_device):
                            g.pyramid.ll.cpu()[tuple(slice(0, s) for s in
                                                     route.tiers(g.uid)[0])])
     assert TK.launches.snapshot().get("rice_decode", 0) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("name", SCHEMES)
+def test_cuda_1d_kernels_match_plain_versions(name, mode, cuda_device):
+    """Windowed 1-D kernels and the row pass against their plain versions
+    (n = 2..40 and long odd lines, int32 extremes, forced tiny tiles)."""
+    from repro_torch.kernels import dwt53 as TD
+
+    rng = np.random.default_rng(12)
+    sch = TS.get_scheme(name)
+    for n in list(range(2, 41)) + [1001, 65537]:
+        for kind in ("rand", "min", "max"):
+            x = _img(rng, (3, n)) if kind == "rand" else np.full(
+                (3, n), I32.min if kind == "min" else I32.max, np.int32)
+            xt = torch.from_numpy(x).to(cuda_device)
+            s0, d0 = TS.lift_fwd_axis(xt, sch, axis=-1, mode=mode)
+            for a, b in zip(TD.rows_fwd_cuda(xt, mode, name), (s0, d0)):
+                assert torch.equal(a, b), (n, kind)
+            assert torch.equal(TD.rows_inv_cuda(s0, d0, mode, name),
+                               TS.lift_inv_axis(s0, d0, sch, axis=-1, mode=mode))
+            if not sch.can_window(n):
+                continue
+            for rb, bp in ((1, 1), (2, 3), (3, 1024)):
+                for a, b in zip(TD.lift_fwd_windows_cuda(xt, mode, rb, bp, name),
+                                TD.lift_fwd_windows_plain(xt, mode, bp, name)):
+                    assert torch.equal(a, b), (n, kind, rb, bp)
+                assert torch.equal(TD.lift_inv_windows_cuda(s0, d0, mode, rb, bp, name),
+                                   TD.lift_inv_windows_plain(s0, d0, mode, bp, name))
+    torch.cuda.synchronize(cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_1d_library_and_codec_paths(cuda_device):
+    from repro_torch.codec import stream as TSTREAM
+
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(_img(rng, (2, 3, 4099), -30000, 30000)).to(cuda_device)
+    TK.launches.reset()
+    for name in SCHEMES:
+        pyr = TK.dwt_fwd(x, levels=4, scheme=name, checked=True)
+        want = TK.dwt_fwd(x.cpu(), levels=4, scheme=name)
+        for a, b in zip((pyr.approx,) + pyr.details, (want.approx,) + want.details):
+            assert torch.equal(a.cpu(), b)
+        assert torch.equal(TK.dwt_inv(pyr, scheme=name, checked=True), x)
+        blob = TCODEC.encode_pyramid(pyr, scheme=name, checked=True)
+        assert blob == TCODEC.encode_pyramid(want, scheme=name)
+        dec = TCODEC.decode_pyramid(blob, device=cuda_device)
+        assert torch.equal(TCODEC.inverse_transform(dec), x)
+    counts = TK.launches.snapshot()
+    assert all(counts.get(k, 0) > 0 for k in
+               ("lift1d_fwd", "lift1d_inv", "rows1d_fwd", "rows1d_inv")), counts
+    with pytest.raises(OverflowError):
+        TK.dwt_fwd(torch.full((1, 64), int(I32.max), dtype=torch.int32, device=cuda_device),
+                   levels=2, checked=True)
+    chunks = [_img(rng, (2, 300)), _img(rng, (7,))]
+    enc = TSTREAM.StreamEncoder(levels=3, ndim=1, device=cuda_device)
+    data = b"".join(enc.encode(chunks))
+    cpu = b"".join(TSTREAM.StreamEncoder(levels=3, ndim=1, device="cpu").encode(chunks))
+    assert data == cpu
+    for a, b in zip(TSTREAM.decode_stream(data, device=cuda_device), chunks):
+        assert torch.equal(a.cpu(), torch.from_numpy(b))

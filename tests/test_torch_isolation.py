@@ -34,7 +34,9 @@ def test_the_scan_sees_every_port_module():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for must in ("chip_smoke.py", "src/repro_torch/core/schemes.py",
                  "src/repro_torch/kernels/fused2d.py", "src/repro_torch/serve/engine.py",
-                 "src/repro_torch/codec/rice.py"):
+                 "src/repro_torch/codec/rice.py", "src/repro_torch/core/ranges.py",
+                 "src/repro_torch/kernels/ops.py", "src/repro_torch/kernels/dwt53.py",
+                 "src/repro_torch/configs/dwt53.py"):
         assert must in names
 
 
@@ -46,7 +48,8 @@ def test_no_port_file_imports_jax_or_repro(path):
 
 def test_fresh_interpreter_imports_the_port_without_jax():
     code = (
-        "import sys; import repro_torch.serve, repro_torch.kernels, repro_torch.codec; "
+        "import sys; import repro_torch.serve, repro_torch.kernels, repro_torch.codec, "
+        "repro_torch.core.ranges, repro_torch.configs.dwt53; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'));"
         "print(bad); sys.exit(1 if bad else 0)"
     )

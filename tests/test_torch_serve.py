@@ -104,7 +104,6 @@ def test_default_engine_refuses_to_serve_without_a_card():
 @pytest.mark.parametrize(
     "kwargs,item",
     [
-        (dict(buckets=BUCKETS, checked=True), "checked ranges"),
         (dict(buckets=[(4, 16, 16)]), "3-D engine"),
         (dict(height=16, width=16, depth=4), "3-D engine"),
         (dict(buckets=BUCKETS, mesh=object()), "sharded"),
@@ -113,6 +112,49 @@ def test_default_engine_refuses_to_serve_without_a_card():
 def test_unported_routes_raise_naming_the_roadmap_item(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         WaveletServeEngine(device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("scheme,mode", [("cdf53", "jpeg2000"), ("97m", "paper")])
+def test_checked_submit_rejects_what_the_reference_rejects(scheme, mode, monkeypatch):
+    """``checked=True`` (and ``REPRO_DWT_CHECKED=1``) certify a request at
+    submit: samples inside the certificate are admitted and served
+    bit-exact, one step outside on both sides raises
+    IntegerOverflowError, and every case has the reference's outcome on
+    the same image."""
+    from repro.core import ranges as RRANGES
+
+    levels = 2
+    cert = RRANGES.range_certificate(scheme, levels, np.int32, mode=mode, ndim=2)
+    rng = np.random.default_rng(31)
+    engines = {}
+    # the certificate is the widest safe SYMMETRIC interval: one step out
+    # on both sides must raise; one side alone is held to the reference
+    for lo, hi, want in ((cert.lo, cert.hi, "ok"),
+                         (cert.lo - 1, cert.hi + 1, "IntegerOverflowError"),
+                         (cert.lo, cert.hi + 1, None), (cert.lo - 1, cert.hi, None)):
+        img = rng.integers(-100, 100, (16, 16)).astype(np.int64)
+        img[0, 0], img[3, 5] = lo, hi
+        img = img.astype(np.int32)
+        outcomes = []
+        for mod, kw in ((RSV, {}), (TSV, dict(device="cpu"))):
+            for flag in (True, None):
+                if flag is None:
+                    monkeypatch.setenv("REPRO_DWT_CHECKED", "1")
+                eng = mod.WaveletServeEngine(buckets=BUCKETS, levels=levels, scheme=scheme,
+                                             mode=mode, checked=flag, **kw)
+                engines[(mod, flag)] = eng
+                try:
+                    eng.submit(mod.TransformRequest(uid=0, image=img))
+                    outcomes.append("ok")
+                except Exception as e:  # noqa: BLE001 - the outcome IS the comparison
+                    outcomes.append(type(e).__name__)
+                monkeypatch.delenv("REPRO_DWT_CHECKED", raising=False)
+        want = want or outcomes[0]
+        assert outcomes == [want] * 4, (lo, hi, outcomes)
+        if want == "ok":
+            (req,) = engines[(TSV, True)].step()
+            xr = TK.dwt_inv_2d_multi(req.pyramid, mode=mode, scheme=scheme, checked=True)
+            np.testing.assert_array_equal(crop_result(xr, req).numpy(), img)
 
 
 def test_engine_validates_like_reference():
