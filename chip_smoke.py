@@ -53,13 +53,37 @@ Phases (any failure raises and the script exits nonzero):
    tensor.  Then the results are held against the plain versions: the
    pyramids and the container and stream bytes must be equal, every
    reconstruction the input.
-7. Time each kernel with CUDA events at the shapes its path gives it
+7. 3-D parity: the whole-volume kernels (``whole3d.cu``: one block per
+   volume, or three passes through device memory past one block) and the
+   depth-slab kernels (``slab3d.cu``) against their plain versions with
+   ``torch.equal``: 4 schemes x 2 modes, shapes (2, 2, 2) to
+   (33, 130, 129), int32 extremes, slabs of depth 2, 4 and the picked
+   depth, lines too long for shared memory; the library entry with lead
+   dims (2, 3) and with ``REPRO_DWT_SLAB`` = 2 and 4.
+8. The 3-D path, with the counters reset just before and read just after
+   and a guard counting plain-version calls on CUDA tensors: one
+   (64, 512, 512) CT-like 12-bit volume (the repo's ``SHAPE_3D_LARGE``)
+   through ``kernels.dwt_fwd_nd`` / ``dwt_inv_nd``, 4 levels, cdf53 /
+   jpeg2000 (slabs, then one block) and cdf22 / paper (three passes),
+   checked and not; over-range 97m inputs must raise; a 3-D serve engine
+   with buckets (16, 256, 256) and (64, 512, 512), 4 slots, 4 levels,
+   serving 8 volumes (a quarter undersized) plain and with
+   ``encode_response=True``, every container decoded and inverted on the
+   card; a thumbnail tier; a WZRS volume stream (slab 8, 3 levels).  All
+   four 3-D kernels and the Rice kernels must have launched, no plain
+   version may have run on a CUDA tensor.  Then every pyramid must equal
+   the plain oracle, every response its request, and the container and
+   stream bytes the plain encode; one encoded 4 x (64, 512, 512) step is
+   timed phase by phase.
+9. Time each kernel with CUDA events at the shapes its path gives it
    (one 2048^2 batch of 8 slots: every level for the 2-D kernels, all 16
    bands for the Rice kernels; 4 levels at (a) 64 x 65,536, (b) 1024 x
    65,536 and (c) one line of 11,534,336 samples for the 1-D kernels, the
-   cdf22 row pass at (a) and (c)), beside its plain version and its
-   bound, comparing outputs once more.
-8. Print the ``{"kernels": [...]}`` line, the card line, and last the
+   cdf22 row pass at (a) and (c); the 4 levels of one 4 x (64, 512, 512)
+   batch for the 3-D kernels, and the three-pass whole-volume path at its
+   level 1 in cdf22), beside its plain version and its bound, comparing
+   outputs once more.
+10. Print the ``{"kernels": [...]}`` line, the card line, and last the
    ``{"ok": true, ...}`` line.  ``--json-out PATH`` also writes the whole
    record (every batch latency, every level's, band's and shape's time)
    to PATH.
@@ -546,7 +570,7 @@ def serve_encoded(rng, dev, n_requests) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: kernel times at the serve path's shapes.
+# Phase 9: kernel times at the serve path's shapes.
 # ---------------------------------------------------------------------------
 
 
@@ -705,7 +729,7 @@ def time_rice(rng, dev) -> list:
 
 
 # ---------------------------------------------------------------------------
-# Phases 5-7: the 1-D library transform.
+# Phases 5, 6 and 9: the 1-D library transform.
 # ---------------------------------------------------------------------------
 
 LENGTHS_1D = (2, 3, 5, 15, 16, 17, 31, 1001, 65536, 65537)
@@ -781,6 +805,8 @@ class PlainGuard:
 
     TARGETS = (
         ("repro_torch.kernels.dwt53", ("lift_fwd_windows_plain", "lift_inv_windows_plain")),
+        ("repro_torch.kernels.fused3d", ("fwd3d_whole_plain", "inv3d_whole_plain",
+                                         "fwd3d_slab_plain", "inv3d_slab_plain")),
         ("repro_torch.core.schemes", ("lift_fwd_axis", "lift_inv_axis")),
         ("repro_torch.codec.rice", ("encode_band_plain", "decode_band_plain")),
     )
@@ -918,7 +944,7 @@ SHAPES_1D = {
 
 
 def time_1d(rng, dev) -> list:
-    """Phase 7, 1-D half: the 1-D kernels summed over 4 levels at three
+    """Phase 9, 1-D half: the 1-D kernels summed over 4 levels at three
     shapes, beside their plain versions and bounds."""
     from repro_torch.core import schemes as S
     from repro_torch.kernels import backend as B
@@ -980,6 +1006,484 @@ def time_1d(rng, dev) -> list:
             "bound_by": a["bound_by"], "library_ms": None,
             "shapes": {k: {"shape": list(SHAPES_1D[k]), "ms": v["ms"], "plain_ms": v["plain_ms"],
                            "bound_ms": v["bound_ms"]} for k, v in ent["per_shape"].items()},
+        })
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phases 7, 8 and 9: the 3-D volume engine.
+# ---------------------------------------------------------------------------
+
+KERNELS_3D = {
+    "whole3d_fwd": ("src/repro_torch/csrc/whole3d.cu", "src/repro/kernels/fused3d.py:116"),
+    "whole3d_inv": ("src/repro_torch/csrc/whole3d.cu", "src/repro/kernels/fused3d.py:133"),
+    "slab3d_fwd": ("src/repro_torch/csrc/slab3d.cu", "src/repro/kernels/fused3d.py:216"),
+    "slab3d_inv": ("src/repro_torch/csrc/slab3d.cu", "src/repro/kernels/fused3d.py:257"),
+}
+# the repo's large 3-D shape (benchmarks/kernels_bench.py SHAPE_3D_LARGE):
+# 64 CT-like slices of 512 x 512
+VOLUME = (64, 512, 512)
+VOL_LEVELS, VOL_SCHEME, VOL_MODE = 4, "cdf53", "jpeg2000"
+VOL_BUCKETS = ((16, 256, 256), (64, 512, 512))
+VOL_SLOTS, VOL_REQUESTS = 4, 8
+CT12 = (-2048, 2048)  # 12-bit samples with the DC level shift: -2048 .. 2047
+
+
+def phantom(rng, shape, dev, noise):
+    """A CT-like 12-bit volume on ``dev``: air around an ellipsoidal body
+    of soft tissue holding five denser or lighter ellipsoids, plus
+    integer noise in [-noise, noise], clipped to [-2048, 2047]."""
+    d, h, w = shape
+    z = torch.linspace(-1, 1, d, device=dev).view(d, 1, 1)
+    y = torch.linspace(-1, 1, h, device=dev).view(1, h, 1)
+    x = torch.linspace(-1, 1, w, device=dev).view(1, 1, w)
+    vol = torch.full(shape, -1024.0, device=dev)
+    for k in range(6):
+        c = rng.uniform(-0.4, 0.4, 3) if k else np.zeros(3)
+        r = rng.uniform(0.12, 0.4, 3) if k else np.array([0.95, 0.8, 0.85])
+        val = float(rng.uniform(-600, 1800)) if k else 40.0
+        inside = (((z - c[0]) / r[0]) ** 2 + ((y - c[1]) / r[1]) ** 2
+                  + ((x - c[2]) / r[2]) ** 2) <= 1
+        vol = torch.where(inside, torch.full_like(vol, val), vol)
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
+    vol += torch.randint(-noise, noise + 1, shape, generator=gen, device=dev).float()
+    return vol.round().clamp(CT12[0], CT12[1] - 1).to(torch.int32)
+
+
+def _shrink(shape, levels):
+    """The (d, h, w) of each level's input."""
+    out = [tuple(shape)]
+    for _ in range(levels - 1):
+        out.append(tuple(n - n // 2 for n in out[-1]))
+    return out
+
+
+def _leaves3(pyr):
+    return [pyr.approx] + [b for lvl in pyr.details for b in lvl]
+
+
+def parity_sweep_3d(rng, dev) -> dict:
+    """Phase 7: both 3-D kernels against their plain versions,
+    ``torch.equal``: the one-block whole-volume path, the three-pass path,
+    depth slabs at the picked and forced depths, lines in global scratch,
+    int32 extremes, and the library entry with lead dims and forced
+    ``REPRO_DWT_SLAB``."""
+    import os
+
+    from repro_torch import kernels as K
+    from repro_torch.core import lifting as L
+    from repro_torch.core import schemes as S
+    from repro_torch.kernels import backend as B
+    from repro_torch.kernels import fused3d as F3
+
+    cases = {"whole3d": 0, "whole3d_multipass": 0, "slab3d": 0, "library": 0}
+
+    def check(label, xt, mode, name, tds):
+        want = F3.fwd3d_whole_plain(xt, mode, name)
+        _equal_or_raise("whole3d_fwd " + label, F3.fwd3d_whole_cuda(xt, mode, name), want)
+        _equal_or_raise("whole3d_inv " + label, [F3.inv3d_whole_cuda(want, mode, name)],
+                        [F3.inv3d_whole_plain(want, mode, name)])
+        fused = F3.volume_geometry(*xt.shape, dev)["fused"]
+        cases["whole3d" if fused else "whole3d_multipass"] += 1
+        for td in tds:
+            lab = f"{label}/td{td}"
+            _equal_or_raise("slab3d_fwd " + lab, F3.fwd3d_slab_cuda(xt, mode, td, name),
+                            F3.fwd3d_slab_plain(xt, mode, td, name))
+            _equal_or_raise("slab3d_inv " + lab, [F3.inv3d_slab_cuda(want, mode, td, name)],
+                            [F3.inv3d_slab_plain(want, mode, td, name)])
+            cases["slab3d"] += 1
+
+    shapes = [(2, 2, 2), (3, 5, 7), (5, 9, 7), (8, 16, 16), (17, 33, 31), (9, 64, 64),
+              (12, 6, 5), (16, 64, 64), (33, 130, 129)]
+    for name in SCHEMES:
+        sch = S.get_scheme(name)
+        for mode in MODES:
+            for shp in shapes:
+                kinds = ("rand", "min", "max") if max(shp) <= 33 else ("rand",)
+                for kind in kinds:
+                    if kind == "rand":
+                        x = rng.integers(-(1 << 20), 1 << 20, (2,) + shp, dtype=np.int32)
+                    else:
+                        x = np.full((2,) + shp, I32.min if kind == "min" else I32.max, np.int32)
+                    tds = ({2, 4, B.pick_slab(*shp, sch.halo, dev)} if sch.can_window(shp[0])
+                           else set())
+                    check(f"{name}/{mode}/2x{shp}/{kind}", torch.from_numpy(x).to(dev), mode,
+                          name, sorted(tds))
+            # the library entry: lead dims, and forced slabs through the
+            # level dispatch (REPRO_DWT_SLAB keeps its reference meaning)
+            x = torch.from_numpy(rng.integers(-(1 << 20), 1 << 20, (2, 3, 6, 10, 12),
+                                              dtype=np.int32)).to(dev)
+            pyr = K.dwt_fwd_nd(x, levels=2, mode=mode, scheme=name)
+            _equal_or_raise(f"dwt_fwd_nd {name}/{mode}/(2,3)x(6,10,12)", _leaves3(pyr),
+                            _leaves3(L.dwt_fwd_nd(x, levels=2, mode=mode, scheme=name)))
+            _equal_or_raise(f"dwt_inv_nd {name}/{mode}/(2,3)x(6,10,12)",
+                            [K.dwt_inv_nd(pyr, mode=mode, scheme=name)], [x])
+            cases["library"] += 1
+            for td in ("2", "4"):
+                os.environ["REPRO_DWT_SLAB"] = td
+                try:
+                    for shp in ((9, 64, 64), (12, 6, 5)):
+                        x = torch.from_numpy(rng.integers(-(1 << 20), 1 << 20, (1,) + shp,
+                                                          dtype=np.int32)).to(dev)
+                        want_plan = "slab-cuda" if sch.can_window(shp[0]) else "whole-cuda"
+                        if K.plan_3d(*shp, dev, name) != want_plan:
+                            raise AssertionError(f"REPRO_DWT_SLAB={td} {shp} {name}: plan "
+                                                 f"{K.plan_3d(*shp, dev, name)}")
+                        pyr = K.dwt_fwd_nd(x, levels=2, mode=mode, scheme=name)
+                        label = f"{name}/{mode}/{shp}/REPRO_DWT_SLAB={td}"
+                        _equal_or_raise("dwt_fwd_nd " + label, _leaves3(pyr),
+                                        _leaves3(L.dwt_fwd_nd(x, levels=2, mode=mode,
+                                                              scheme=name)))
+                        _equal_or_raise("dwt_inv_nd " + label,
+                                        [K.dwt_inv_nd(pyr, mode=mode, scheme=name)], [x])
+                        cases["library"] += 1
+                finally:
+                    del os.environ["REPRO_DWT_SLAB"]
+    # lines longer than one block's shared memory: global staging
+    for shp in ((3, 5, 60001), (60001, 3, 2)):
+        x = torch.from_numpy(rng.integers(-(1 << 20), 1 << 20, (1,) + shp, dtype=np.int32)).to(dev)
+        check(f"cdf53/paper/{shp}", x, "paper", "cdf53",
+              [B.pick_slab(*shp, S.get_scheme("cdf53").halo, dev)])
+    torch.cuda.synchronize(dev)
+    return cases
+
+
+def volume_images(rng, dev):
+    """VOL_REQUESTS volumes, alternating buckets, a quarter undersized, half
+    12-bit noise and half smooth phantoms (ellipsoids, +-2 noise), so the
+    Rice parameters span small and large k."""
+    imgs = []
+    for uid in range(VOL_REQUESTS):
+        bd, bh, bw = VOL_BUCKETS[uid % 2]
+        undersized = uid in (2, 7)  # one in each bucket
+        shape = (bd - bd // 16, bh - bh // 64 - 1, bw - bw // 16) if undersized else (bd, bh, bw)
+        if uid % 4 in (1, 2):
+            imgs.append(phantom(rng, shape, dev, noise=2).cpu().numpy())
+        else:
+            imgs.append(rng.integers(*CT12, shape, dtype=np.int32))
+    return imgs
+
+
+def plain_volume_container(bands, kind_lead, shape, levels):
+    """The container ``encode_batch`` / ``encode_pyramid`` must give for
+    N-D bands, each coded by the plain Rice encode where it lives."""
+    from repro_torch.codec import container as C
+    from repro_torch.codec import rice as R
+
+    coded = [R.encode_band_plain(b.reshape(-1), chunk_blocks=8192) for b in bands]
+    return C.assemble(coded, C.KIND_ND, VOL_SCHEME, VOL_MODE, np.dtype(np.int32), levels, 3,
+                      kind_lead, shape)
+
+
+def volume_breakdown(reqs, dev) -> dict:
+    """One encoded 3-D serve step of the largest bucket, phase by phase,
+    each timed alone on the host clock with a device sync after it."""
+    from repro_torch import kernels as K
+    from repro_torch.codec import container as C
+    from repro_torch.codec import rice as R
+
+    bucket = VOL_BUCKETS[-1]
+
+    def assemble_batch():
+        batch = np.zeros((VOL_SLOTS,) + bucket, np.int32)
+        for i, r in enumerate(reqs):
+            batch[(i,) + tuple(slice(0, s) for s in r.image.shape)] = r.image
+        return batch
+
+    ms = {}
+    batch, ms["host_assembly"] = _timed(assemble_batch, dev)
+    xb, ms["host_to_device"] = _timed(lambda: torch.from_numpy(batch).to(dev), dev)
+    pyr, ms["forward_all_levels"] = _timed(
+        lambda: K.dwt_fwd_nd(xb, levels=VOL_LEVELS, mode=VOL_MODE, scheme=VOL_SCHEME), dev)
+    bands = [b.reshape(-1) for b in _leaves3(pyr)]
+    enc, ms["rice_encode_kernel"] = _timed(lambda: [R.rice_encode_cuda(b) for b in bands], dev)
+    offs, ms["byte_offsets"] = _timed(lambda: [R.byte_offsets(e[2]) for e in enc], dev)
+    tables, ms["tables_to_host"] = _timed(
+        lambda: [R.tables_to_host(e[1], lens) for e, (lens, _) in zip(enc, offs)], dev)
+    payloads, ms["compaction_kernel"] = _timed(lambda: [
+        R.rice_compact_cuda(e[0], e[2], o, int(t[1].sum()))
+        for e, (_, o), t in zip(enc, offs, tables)], dev)
+    coded, ms["device_to_host_payload"] = _timed(lambda: [
+        (R.payload_to_host(p),) + t for p, t in zip(payloads, tables)], dev)
+    blob, ms["host_crc32_and_header"] = _timed(lambda: C.assemble(
+        coded, C.KIND_ND, VOL_SCHEME, VOL_MODE, np.dtype(np.int32), VOL_LEVELS, 3, (VOL_SLOTS,),
+        bucket), dev)
+    ms["step_sum"] = sum(ms.values())
+    want = C.encode_batch(pyr, scheme=VOL_SCHEME, mode=VOL_MODE, ndim=3)
+    if blob != want:
+        raise AssertionError("3-D step stages differ from encode_batch")
+    return {"ms": ms, "container_bytes": len(blob), "payload_bytes": sum(len(c[0]) for c in coded),
+            "coefficients": sum(b.numel() for b in bands)}
+
+
+def volume_paths(rng, dev) -> dict:
+    """Phase 8: the 3-D library at full width, the 3-D serve route
+    (plain and encoded, decoded and inverted on the card) and a WZRS
+    volume stream.  The launch counters are reset just before and read
+    just after driving them, under a guard that counts plain-version
+    calls on CUDA tensors; the comparisons with the plain versions come
+    after."""
+    from repro_torch import codec, obs
+    from repro_torch import kernels as K
+    from repro_torch.codec import container as C
+    from repro_torch.codec import stream as ST
+    from repro_torch.core import lifting as L
+    from repro_torch.core import ranges as RG
+    from repro_torch.resilience.errors import IntegerOverflowError
+    from repro_torch.serve import (ProgressiveServeRoute, TransformRequest, WaveletServeEngine,
+                                   crop_result)
+
+    vol = phantom(rng, VOLUME, dev, noise=20)
+    x1 = vol[None]
+    cert1 = RG.range_certificate("97m", 1, "int32", mode="paper", ndim=3)
+    over = {"full_range": torch.from_numpy(rng.integers(I32.min, I32.max, VOLUME, dtype=np.int32,
+                                                        endpoint=True)).to(dev)}
+    edge = vol.clone()
+    edge[1, 3, 7], edge[-2, 7, -9] = cert1.lo - 1, cert1.hi + 1
+    over["one_past_level1_certificate"] = edge
+    imgs = volume_images(rng, dev)
+    reqs_plain, reqs_enc = ([TransformRequest(uid=i, image=img) for i, img in enumerate(imgs)]
+                            for _ in range(2))
+    vol_np = vol.cpu().numpy()
+    engines = [WaveletServeEngine(buckets=VOL_BUCKETS, batch_slots=VOL_SLOTS, levels=VOL_LEVELS,
+                                  scheme=VOL_SCHEME, mode=VOL_MODE, device=str(dev),
+                                  encode_response=enc) for enc in (False, True)]
+    warm_s = []
+    for eng in engines:
+        t = time.perf_counter()
+        eng.warmup()
+        warm_s.append(time.perf_counter() - t)
+    torch.cuda.synchronize(dev)
+
+    K.launches.reset()
+    obs.reset()
+    ms, lib, raised, served = {}, {}, {}, {}
+    with PlainGuard() as guard:
+        # the library: cdf53/jpeg2000 (slabs, then one block) and
+        # cdf22/paper (three passes at every level), checked and not
+        for name, mode in ((VOL_SCHEME, VOL_MODE), ("cdf22", "paper")):
+            for checked in (False, True):
+                kw = dict(mode=mode, scheme=name, checked=checked)
+                pyr, t_f = _timed(lambda: K.dwt_fwd_nd(x1, levels=VOL_LEVELS, **kw), dev)
+                y, t_i = _timed(lambda: K.dwt_inv_nd(pyr, **kw), dev)
+                lib[(name, checked)] = (pyr, y)
+                ms[f"{name} checked={checked}"] = {"forward": t_f, "inverse": t_i}
+        for label, xo in over.items():
+            try:
+                K.dwt_fwd_nd(xo, levels=VOL_LEVELS, scheme="97m", mode="paper", checked=True)
+            except IntegerOverflowError as e:
+                raised[label] = str(e)[:160]
+            else:
+                raise AssertionError(f"97m checked forward of {label} did not raise")
+        # serve, plain and encoded; the client decodes and inverts on the card
+        for eng, reqs, key in ((engines[0], reqs_plain, "plain"), (engines[1], reqs_enc, "encoded")):
+            for r in reqs:
+                eng.submit(r)
+            lat = []
+            t_all = time.perf_counter()
+            out = []
+            while eng.scheduler.pending():
+                t = time.perf_counter()
+                out.extend(eng.step())
+                torch.cuda.synchronize(dev)
+                lat.append((time.perf_counter() - t) * 1e3)
+            served[key] = {"reqs": out, "batch_ms": lat, "serve_s": time.perf_counter() - t_all}
+        recon = {}
+        for r in served["plain"]["reqs"]:
+            recon[r.uid] = crop_result(K.dwt_inv_nd(r.pyramid, mode=VOL_MODE, scheme=VOL_SCHEME),
+                                       r)
+        rows_approx, recon_enc = {}, {}
+        groups = {}
+        for r in served["encoded"]["reqs"]:
+            if r.error is not None or r.encoded is None or r.batch_index is None:
+                raise AssertionError(f"volume request {r.uid}: served without bytes ({r.error})")
+            groups.setdefault(id(r.encoded), []).append(r)
+        for group in groups.values():
+            rows = codec.decode_batch(group[0].encoded, device=dev)
+            for r in group:
+                row = rows[r.batch_index]
+                rows_approx[r.uid] = row.approx
+                recon_enc[r.uid] = crop_result(K.dwt_inv_nd(row, mode=VOL_MODE,
+                                                            scheme=VOL_SCHEME), r)
+        route = ProgressiveServeRoute(device=dev)
+        thumb_req = next(r for r in served["encoded"]["reqs"] if r.padded)
+        route.store(thumb_req)
+        thumb = route.thumbnail(thumb_req.uid)
+        # a WZRS volume stream: depth slabs of 8, 3 levels each
+        data, ms["stream_encode"] = _timed(
+            lambda: b"".join(ST.encode_volume(vol_np, slab=8, levels=3, scheme=VOL_SCHEME,
+                                              mode=VOL_MODE, device=dev)), dev)
+        back, ms["stream_decode"] = _timed(lambda: ST.decode_volume(data, device=dev), dev)
+    counts = K.launches.snapshot()
+    metrics = obs.snapshot()["metrics"]
+    if guard.calls:
+        raise AssertionError(f"plain versions ran on CUDA tensors on the 3-D path: {guard.calls}")
+    need = list(KERNELS_3D) + ["rice_encode", "rice_compact", "rice_decode"]
+    missing = [k for k in need if counts.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels {missing} never launched on the 3-D path: {counts}")
+    if metrics.get("serve.encode_degrades", 0) or metrics.get("serve.encode_quarantines", 0):
+        raise AssertionError("the 3-D encoded route degraded or quarantined an encode")
+
+    # the comparisons: the plain oracle, bit-exact round trips, plain bytes
+    plans = {}
+    for name, mode in ((VOL_SCHEME, VOL_MODE), ("cdf22", "paper")):
+        want = L.dwt_fwd_nd(x1, levels=VOL_LEVELS, mode=mode, scheme=name)
+        for checked in (False, True):
+            pyr, y = lib[(name, checked)]
+            _equal_or_raise(f"{name} {VOLUME} checked={checked} pyramid", _leaves3(pyr),
+                            _leaves3(want))
+            _equal_or_raise(f"{name} {VOLUME} checked={checked} round trip", [y], [x1])
+        plans[name] = [K.plan_3d(*dhw, dev, name) for dhw in _shrink(VOLUME, VOL_LEVELS)]
+        del want
+    if plans[VOL_SCHEME] != ["slab-cuda"] * (VOL_LEVELS - 1) + ["whole-cuda"]:
+        raise AssertionError(f"plan_3d {VOL_SCHEME}: {plans[VOL_SCHEME]}")
+    if plans["cdf22"] != ["whole-cuda"] * VOL_LEVELS:
+        raise AssertionError(f"plan_3d cdf22: {plans['cdf22']}")
+    lib.clear()
+    for key, reqs in (("plain", reqs_plain), ("encoded", reqs_enc)):
+        got = served[key]["reqs"]
+        if len(got) != VOL_REQUESTS or any(r.error is not None or not r.done for r in got):
+            raise AssertionError(f"3-D {key} serve: {len(got)} of {VOL_REQUESTS} served")
+    for r in served["plain"]["reqs"]:
+        if not torch.equal(recon[r.uid], torch.from_numpy(r.image).to(dev)):
+            raise AssertionError(f"volume request {r.uid}: reconstruction is not bit-exact")
+    for r in served["encoded"]["reqs"]:
+        if not torch.equal(recon_enc[r.uid], torch.from_numpy(r.image).to(dev)):
+            raise AssertionError(f"volume request {r.uid}: encoded response is not bit-exact")
+    checked_oracle = set()
+    for r in served["plain"]["reqs"]:
+        if r.bucket in checked_oracle:
+            continue
+        padded = torch.zeros(r.bucket, dtype=torch.int32, device=dev)
+        padded[tuple(slice(0, s) for s in r.image.shape)] = torch.from_numpy(r.image).to(dev)
+        _equal_or_raise(f"3-D serve oracle {r.bucket}", _leaves3(r.pyramid), _leaves3(
+            L.dwt_fwd_nd(padded, levels=VOL_LEVELS, mode=VOL_MODE, scheme=VOL_SCHEME)))
+        checked_oracle.add(r.bucket)
+    want_thumb = rows_approx[thumb_req.uid][tuple(slice(0, s) for s in thumb.shape)]
+    if not torch.equal(thumb, want_thumb):
+        raise AssertionError(f"volume request {thumb_req.uid}: thumbnail != approx band")
+    plain_checked = []
+    by_bucket = {}
+    for r in served["encoded"]["reqs"]:
+        by_bucket.setdefault(r.bucket, []).append(r)
+    for bucket, group in by_bucket.items():
+        group = sorted(group, key=lambda r: r.batch_index)
+        if any(r.encoded is not group[0].encoded for r in group):
+            raise AssertionError(f"bucket {bucket}: more than one batch container")
+        bands = [torch.stack([_leaves3(r.pyramid)[j] for r in group])
+                 for j in range(1 + 7 * VOL_LEVELS)]
+        if plain_volume_container(bands, (len(group),), bucket, VOL_LEVELS) != group[0].encoded:
+            raise AssertionError(f"bucket {bucket}: container differs from the plain encode")
+        plain_checked.append("x".join(map(str, bucket)))
+    _equal_or_raise("volume stream round trip", [back], [vol])
+    from repro_torch.codec import stream as ST2
+
+    frames = [ST2.stream_header()]
+    for i in range(0, VOLUME[0], 8):
+        slab_pyr = L.dwt_fwd_nd(vol[i:i + 8], levels=3, mode=VOL_MODE, scheme=VOL_SCHEME)
+        frames.append(ST2.frame(plain_volume_container(_leaves3(slab_pyr), (), (8,) + VOLUME[1:],
+                                                       3)))
+    frames.append(ST2.terminator())
+    if b"".join(frames) != data:
+        raise AssertionError("3-D stream coded on the card differs from the plain encode")
+    big = sorted((r for r in served["encoded"]["reqs"] if r.bucket == VOL_BUCKETS[-1]),
+                 key=lambda r: r.batch_index)
+    breakdown = volume_breakdown(big, dev)
+    torch.cuda.synchronize(dev)
+    summary = {}
+    for key in ("plain", "encoded"):
+        lat = sorted(served[key]["batch_ms"])
+        summary[key] = {"requests": len(served[key]["reqs"]),
+                        "undersized": sum(r.padded for r in served[key]["reqs"]),
+                        "batches": len(lat), "requests_per_s":
+                        len(served[key]["reqs"]) / served[key]["serve_s"],
+                        "batch_ms_p50": statistics.median(lat), "batch_ms": lat}
+    return {"launches": counts, "plain_calls_on_cuda": guard.calls, "ms": ms, "raised": raised,
+            "plans": plans, "serve": summary, "warmup_s": warm_s,
+            "container_bytes": {str(r.uid): len(r.encoded) for r in served["encoded"]["reqs"]},
+            "plain_container_checked": plain_checked, "thumbnail_uid": thumb_req.uid,
+            "stream_bytes": len(data), "breakdown_ms": breakdown}
+
+
+def time_3d(rng, dev) -> list:
+    """Phase 9, 3-D half: CUDA-event medians of each 3-D kernel over the 4 levels of
+    one 4 x (64, 512, 512) batch (cdf53 / jpeg2000: slabs at levels 1-3,
+    one block per volume at level 4), beside its plain version and bound;
+    and the three-pass whole-volume path at level 1 (cdf22), recorded
+    apart."""
+    from repro_torch.core import schemes as S
+    from repro_torch.kernels import backend as B
+    from repro_torch.kernels import fused3d as F3
+
+    sch = S.get_scheme(VOL_SCHEME)
+    # three axes, each lifting every sample: pair_op_counts per pair, x 1.5
+    ops_per_sample = 1.5 * sum(sch.pair_op_counts()[k] for k in ("adders", "shifters"))
+    x0 = torch.cat([phantom(rng, VOLUME, dev, noise=20)[None] for _ in range(VOL_SLOTS)])
+    per = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0, "err": 0, "levels": []}
+           for k in KERNELS_3D}
+    x = x0
+    for lv, (d, h, w) in enumerate(_shrink(VOLUME, VOL_LEVELS)):
+        plan = F3.plan_3d(d, h, w, dev, VOL_SCHEME)
+        bands = F3.fwd3d_whole_plain(x, VOL_MODE, VOL_SCHEME)
+        if plan == "slab-cuda":
+            td = B.pick_slab(d, h, w, sch.halo, dev)
+            runs = {
+                "slab3d_fwd": (lambda: F3.fwd3d_slab_cuda(x, VOL_MODE, td, VOL_SCHEME),
+                               lambda: F3.fwd3d_slab_plain(x, VOL_MODE, td, VOL_SCHEME)),
+                "slab3d_inv": (lambda: [F3.inv3d_slab_cuda(bands, VOL_MODE, td, VOL_SCHEME)],
+                               lambda: [F3.inv3d_slab_plain(bands, VOL_MODE, td, VOL_SCHEME)]),
+            }
+        else:
+            runs = {
+                "whole3d_fwd": (lambda: F3.fwd3d_whole_cuda(x, VOL_MODE, VOL_SCHEME),
+                                lambda: F3.fwd3d_whole_plain(x, VOL_MODE, VOL_SCHEME)),
+                "whole3d_inv": (lambda: [F3.inv3d_whole_cuda(bands, VOL_MODE, VOL_SCHEME)],
+                                lambda: [F3.inv3d_whole_plain(bands, VOL_MODE, VOL_SCHEME)]),
+            }
+        n = x.numel()
+        for name, (kern, plain) in runs.items():
+            e = per[name]
+            err = _equal_or_raise(f"{name} {VOL_SLOTS}x{(d, h, w)}", kern(), plain())
+            ms = _median_ms(kern, 20)
+            pms = _median_ms(plain, 3)
+            nbytes = 2 * n * 4  # read every sample once, write every band once
+            e["ms"] += ms
+            e["plain_ms"] += pms
+            e["bytes"] += nbytes
+            e["ops"] += int(ops_per_sample * n)
+            e["err"] = max(e["err"], err)
+            e["levels"].append({"shape": [VOL_SLOTS, d, h, w], "ms": ms, "plain_ms": pms,
+                                "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3})
+        x = bands[0]
+        del bands
+    # the three-pass whole-volume path at full width: cdf22 cannot slab
+    x = x0
+    bands = F3.fwd3d_whole_plain(x, "paper", "cdf22")
+    multipass = {}
+    for name, kern, plain in (
+        ("whole3d_fwd", lambda: F3.fwd3d_whole_cuda(x, "paper", "cdf22"),
+         lambda: F3.fwd3d_whole_plain(x, "paper", "cdf22")),
+        ("whole3d_inv", lambda: [F3.inv3d_whole_cuda(bands, "paper", "cdf22")],
+         lambda: [F3.inv3d_whole_plain(bands, "paper", "cdf22")]),
+    ):
+        err = _equal_or_raise(f"{name} cdf22 three-pass {tuple(x.shape)}", kern(), plain())
+        per[name]["err"] = max(per[name]["err"], err)
+        multipass[name] = {"shape": list(x.shape), "scheme": "cdf22", "ms": _median_ms(kern, 10),
+                           "plain_ms": _median_ms(plain, 3),
+                           "bound_ms": 2 * x.numel() * 4 / PEAK_BYTES_PER_S * 1e3}
+    del x0, x, bands
+    torch.cuda.empty_cache()
+    out = []
+    for name, (source, replaces) in KERNELS_3D.items():
+        e = per[name]
+        t_bytes = e["bytes"] / PEAK_BYTES_PER_S * 1e3
+        t_ops = e["ops"] / PEAK_OPS_PER_S * 1e3
+        out.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": 0, "max_abs_err": e["err"], "ms": e["ms"], "plain_ms": e["plain_ms"],
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "levels": e["levels"], "three_pass": multipass.get(name),
         })
     return out
 
@@ -1060,6 +1564,39 @@ def main() -> int:
     for name, plan in lib["plans"].items():
         print(f"plan_1d {name}: {plan}")
 
+    t = time.perf_counter()
+    checks.update(parity_sweep_3d(rng, dev))
+    print(f"3-D parity: whole3d and slab3d kernels == plain versions on every case "
+          f"{ {k: checks[k] for k in ('whole3d', 'whole3d_multipass', 'slab3d', 'library')} } "
+          f"({time.perf_counter() - t:.1f} s)", flush=True)
+    t = time.perf_counter()
+    vp = volume_paths(rng, dev)
+    print(f"3-D path: {VOLUME} CT-like volume, {VOL_LEVELS} levels, {VOL_SCHEME}/{VOL_MODE} and "
+          f"cdf22/paper, checked and not, equal to the plain oracle with bit-exact round trips; "
+          f"over-range 97m raised IntegerOverflowError for {sorted(vp['raised'])} "
+          f"({time.perf_counter() - t:.1f} s)", flush=True)
+    for name, plan in vp["plans"].items():
+        print(f"plan_3d {name} {VOLUME}: {plan}")
+    for key, sv in vp["serve"].items():
+        print(f"3-D serve ({key}): {sv['requests']} volumes ({sv['undersized']} undersized) in "
+              f"{sv['batches']} batches over buckets {list(VOL_BUCKETS)}, {VOL_SLOTS} slots, "
+              f"{sv['requests_per_s']:.3f} req/s, batch p50 {sv['batch_ms_p50']:.1f} ms; every "
+              f"response reconstructed on the card bit-exact")
+    print(f"3-D encoded serve: containers equal to the plain encode for "
+          f"{vp['plain_container_checked']}; thumbnail of request {vp['thumbnail_uid']} == its "
+          f"approx band; WZRS volume stream ({vp['stream_bytes']} bytes, slab=8, levels=3) equal "
+          f"to the plain encode and decoded exactly on the card")
+    print(f"launches on the 3-D path: {vp['launches']}; plain versions called on CUDA tensors: "
+          f"{sum(vp['plain_calls_on_cuda'].values())}")
+    print("3-D path, ms: " + "; ".join(
+        f"{k} " + (f"{v:.3f}" if isinstance(v, float) else
+                   ", ".join(f"{a} {b:.3f}" for a, b in v.items()))
+        for k, v in vp["ms"].items()))
+    bd = vp["breakdown_ms"]
+    print(f"one encoded {VOL_SLOTS} x {VOL_BUCKETS[-1]} step ({bd['coefficients']} coefficients, "
+          f"{bd['payload_bytes']} payload bytes, {bd['container_bytes']} container bytes), ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in bd["ms"].items()))
+
     kernels = time_kernels(rng, dev) + time_rice(rng, dev)
     for k in kernels:
         k["launches"] = enc["launches"][k["name"]]
@@ -1079,15 +1616,28 @@ def main() -> int:
             else:  # the Rice kernels: all bands of the batch at once
                 print(f"  {k['name']} {lv}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms,"
                       f" bound {k['bound_ms']:.4f} ms, {k['bound_by']})")
+    kernels_3d = time_3d(rng, dev)
+    levels_3d = {}
+    for k in kernels_3d:
+        k["launches"] = vp["launches"][k["name"]]
+        levels_3d[k["name"]] = {"levels": k.pop("levels"), "three_pass": k.pop("three_pass")}
+        for lv in levels_3d[k["name"]]["levels"]:
+            print(f"  {k['name']} {lv['shape']}: {lv['ms']:.4f} ms (plain {lv['plain_ms']:.3f} ms, "
+                  f"bound {lv['bound_ms']:.4f} ms)")
+        tp = levels_3d[k["name"]]["three_pass"]
+        if tp:
+            print(f"  {k['name']} three-pass {tp['shape']} {tp['scheme']}: {tp['ms']:.4f} ms "
+                  f"(plain {tp['plain_ms']:.3f} ms, bound {tp['bound_ms']:.4f} ms)")
     if args.json_out:
         record = {"card": card, "torch": torch.__version__, "seed": args.seed,
                   "parity_cases": checks, "serve": srv, "serve_encoded": enc,
-                  "path_1d": lib, "kernels_1d_shapes": shapes_1d,
-                  "kernels": kernels + kernels_1d}
+                  "path_1d": lib, "kernels_1d_shapes": shapes_1d, "path_3d": vp,
+                  "kernels_3d_levels": levels_3d,
+                  "kernels": kernels + kernels_1d + kernels_3d}
         out = pathlib.Path(args.json_out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(record, indent=1))
-    kernels += kernels_1d
+    kernels += kernels_1d + kernels_3d
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -25,9 +25,8 @@ Where the port differs from the reference:
     against the range certificate's band envelope
     (``core.ranges.assert_encodable``: one min/max per band where it
     lives, compared on the host in Python integers), as the reference.
-  * :func:`inverse_transform` runs the port's 1-D and 2-D inverses; the
-    N-D inverse with ``levels > 0`` is not ported yet and raises
-    ``NotImplementedError`` (ROADMAP.md Queue 1 item 5).
+  * :func:`inverse_transform` runs the port's inverses (1-D, 2-D and
+    ``kernels.dwt_inv_nd`` for N-D) where the decoded bands live.
   * There is no ``backend=`` argument: the band's device is the choice.
 """
 from __future__ import annotations
@@ -74,13 +73,6 @@ _TORCH_DTYPES = {
 }
 
 _HEAD = struct.Struct("<4sBBBBBBBBHBB")
-
-def _not_ported_nd() -> NotImplementedError:
-    return NotImplementedError(
-        "N-D inverse is not ported to repro_torch yet; see ROADMAP.md Queue 1 "
-        "item 5 (the 3-D engine)"
-    )
-
 
 class DecodedPyramid(NamedTuple):
     """A decoded container: the pyramid plus its self-description.
@@ -686,10 +678,9 @@ def decode_pyramid_partial(data: bytes, device="cuda") -> PartialDecode:
 def inverse_transform(dec):
     """Run the recorded inverse transform on a decoded pyramid, where its
     bands live: the container is self-describing, so the right engine
-    (1-D / 2-D) and the recorded scheme/mode need no out-of-band
-    metadata.  A levels-0 N-D container is its approx band; the N-D
-    inverse with levels > 0 is not ported yet and raises
-    NotImplementedError."""
+    (1-D / 2-D / N-D) and the recorded scheme/mode need no out-of-band
+    metadata.  Accepts a :class:`DecodedPyramid` or a (complete)
+    :class:`PartialDecode`."""
     from repro_torch import kernels as K
 
     if dec.kind == KIND_1D:
@@ -698,7 +689,7 @@ def inverse_transform(dec):
         return K.dwt_inv_2d_multi(dec.pyramid, mode=dec.mode, scheme=dec.scheme)
     if dec.levels == 0:
         return dec.pyramid.approx  # identity pyramid carries no band order
-    raise _not_ported_nd()
+    return K.dwt_inv_nd(dec.pyramid, mode=dec.mode, scheme=dec.scheme)
 
 
 def encode_batch(

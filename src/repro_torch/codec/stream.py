@@ -14,9 +14,9 @@ being cut at any frame boundary::
 :class:`StreamEncoder` forward-transforms each integer chunk over its
 trailing ``ndim`` axes where ``device`` says (levels clamped per frame),
 then container-encodes it; :func:`decode_stream` inverts each frame back
-to a sample tensor on ``device``.  Frames are 1-D (``kernels.dwt_fwd``)
-or 2-D (``kernels.dwt_fwd_2d_multi``); ``ndim >= 3`` raises
-``NotImplementedError`` (ROADMAP.md Queue 1 item 5, the 3-D engine).
+to a sample tensor on ``device``.  Frames are 1-D (``kernels.dwt_fwd``),
+2-D (``kernels.dwt_fwd_2d_multi``) or N-D (``kernels.dwt_fwd_nd``: 3-D
+volume slabs on the volume kernels).
 """
 from __future__ import annotations
 
@@ -76,11 +76,6 @@ class StreamEncoder:
             raise ValueError("levels must be >= 0")
         if ndim < 1:
             raise ValueError("ndim must be >= 1")
-        if ndim >= 3:
-            raise NotImplementedError(
-                f"{ndim}-D stream frames are not ported to repro_torch yet; see "
-                "ROADMAP.md Queue 1 item 5 (the 3-D engine)"
-            )
         self.levels = levels
         self.scheme = scheme
         self.mode = mode
@@ -102,9 +97,16 @@ class StreamEncoder:
         x = x.to(_backend.resolve_device(self.device))
         trailing = tuple(x.shape[-self.ndim:])
         levels = min(self.levels, lifting.max_levels_nd(trailing))
-        fwd = K.dwt_fwd if self.ndim == 1 else K.dwt_fwd_2d_multi
-        pyr = fwd(x, levels=levels, mode=self.mode, scheme=self.scheme)
-        return frame(container.encode_pyramid(pyr, scheme=self.scheme, mode=self.mode))
+        kw = dict(levels=levels, mode=self.mode, scheme=self.scheme)
+        if self.ndim == 1:
+            pyr = K.dwt_fwd(x, **kw)
+        elif self.ndim == 2:
+            pyr = K.dwt_fwd_2d_multi(x, **kw)
+        else:
+            pyr = K.dwt_fwd_nd(x, ndim=self.ndim, **kw)
+        return frame(container.encode_pyramid(
+            pyr, scheme=self.scheme, mode=self.mode, ndim=self.ndim if self.ndim >= 3 else None,
+        ))
 
     def encode(self, chunks: Iterable) -> Iterator[bytes]:
         yield stream_header()
@@ -196,9 +198,10 @@ def encode_volume(
     x, slab: int = 8, levels: int = 2, scheme: str = "cdf53", mode: str = "paper",
     device="cuda",
 ) -> Iterator[bytes]:
-    """Stream-encode an array as independent slabs along its leading axis,
-    each transformed over its ``x.ndim`` trailing axes (only 2-D arrays
-    are ported: ``x.ndim == 3`` raises NotImplementedError)."""
+    """Stream-encode a volume as independent slabs along its leading axis:
+    each ``x[i : i + slab]`` transforms as its own ``x.ndim``-D pyramid
+    (levels clamped per slab, so a partial final slab encodes too), so no
+    whole-volume pyramid or bitstream is ever resident."""
     x = np.asarray(x)
     if x.ndim < 2:
         raise ValueError(f"need a volume (>= 2 axes), got shape {x.shape}")

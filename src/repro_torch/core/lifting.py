@@ -14,19 +14,24 @@ reference runs JAX with x64 disabled, which narrows int64 input to
 int32 before lifting, while torch would lift it natively in int64 — so
 neither choice would silently match.  Callers cast to int32 explicitly.
 
-The N-D pyramid type (:class:`PyramidND`) and its band geometry are
-here because the codec reads and writes containers of every kind; the
-N-D transform itself is not ported yet (``ROADMAP.md``, Queue 1 item
-5).  ``checked=`` range certification lives on the kernels' entry
-points (``kernels.ops``, ``kernels.fused2d``), not on this oracle.
+The N-D part (:class:`PyramidND`, :func:`dwt_fwd_nd` /
+:func:`dwt_inv_nd`, :func:`pack_nd` / :func:`unpack_nd`) transforms the
+last ``ndim`` axes, one axis at a time per level: axis -1 first, so
+ndim 1 and 2 reproduce the 1-D and 2-D transforms bit for bit; bit j of
+a band's code means highpass along axis -(j+1).  It is the plain
+version of the 3-D kernels (``kernels/fused3d.py``) and, like the
+reference's, takes ``checked=``; the 1-D and 2-D oracles do not (their
+range checks live on the kernels' entry points, ``kernels.ops`` and
+``kernels.fused2d``).
 """
 from __future__ import annotations
 
-from typing import Any, List, NamedTuple, Tuple
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core import ranges as _ranges
 from repro_torch.core import schemes as S
 from repro_torch.core.schemes import (  # noqa: F401  re-exported registry surface
     LiftingScheme,
@@ -487,3 +492,139 @@ def band_shapes_nd(
         per_level.append(tuple(lvl))
         dims = evens
     return tuple(dims), tuple(reversed(per_level))
+
+
+# ---------------------------------------------------------------------------
+# The N-D transform: one level per axis, axis -1 first.
+# ---------------------------------------------------------------------------
+
+
+def _fwd_nd_level(x: Tensor, ndim: int, mode: str, scheme) -> List[Tensor]:
+    """One N-D level: the ``2**ndim`` bands in code order (code 0 is the
+    approximation; bit j of the code = highpass along axis -(j+1))."""
+    bands = [x]
+    for j in range(ndim):  # axis -1 first, matching the 2-D composition
+        nxt: List[Tensor] = [None] * (2 * len(bands))  # type: ignore[list-item]
+        for code, b in enumerate(bands):
+            s, d = S.lift_fwd_axis(b, scheme, axis=-(j + 1), mode=mode)
+            nxt[code] = s
+            nxt[code | (1 << j)] = d
+        bands = nxt
+    return bands
+
+
+def _inv_nd_level(bands: List[Tensor], ndim: int, mode: str, scheme) -> Tensor:
+    """Structural inverse of :func:`_fwd_nd_level` (axes in reverse)."""
+    cur = list(bands)
+    for j in reversed(range(ndim)):
+        half = 1 << j
+        cur = [
+            S.lift_inv_axis(cur[code], cur[code | half], scheme, axis=-(j + 1), mode=mode)
+            for code in range(half)
+        ]
+    return cur[0]
+
+
+def check_levels_nd(shape: Tuple[int, ...], levels: int) -> None:
+    """Raise unless the trailing ``shape`` supports ``levels`` N-D levels."""
+    if levels < 0:
+        raise ValueError("levels must be >= 0")
+    dims = list(shape)
+    if not dims:
+        raise ValueError("need at least one transform axis")
+    for _ in range(levels):
+        if any(n < 2 for n in dims):
+            raise ValueError(f"shape {tuple(shape)} too small for {levels} N-D levels")
+        dims = [n - n // 2 for n in dims]
+
+
+def dwt_fwd_nd(
+    x: Tensor, levels: int = 1, mode: str = "paper", scheme="cdf53", ndim: int = 3,
+    checked=None,
+) -> PyramidND:
+    """Multi-level N-D forward transform over the last ``ndim`` axes.
+
+    ``levels=0`` is the identity pyramid (no detail bands).  ndim 1 and 2
+    reproduce the 1-D and 2-D transforms bit for bit.  ``checked=True``
+    (or ``REPRO_DWT_CHECKED=1``) certifies the data first and raises
+    ``IntegerOverflowError`` instead of returning wrapped bands.
+    """
+    if ndim < 1:
+        raise ValueError(f"ndim must be >= 1, got {ndim}")
+    if x.ndim < ndim:
+        raise ValueError(f"need >= {ndim} axes, got shape {tuple(x.shape)}")
+    check_levels_nd(tuple(x.shape[-ndim:]), levels)
+    if _ranges.checked_enabled(checked):
+        return _ranges.run_checked(
+            lambda a: dwt_fwd_nd(a, levels=levels, mode=mode, scheme=scheme, ndim=ndim,
+                                 checked=False),
+            x, scheme=scheme, levels=levels, mode=mode, ndim=ndim, label="lifting.dwt_fwd_nd",
+        )
+    approx = promote_narrow(x)
+    details: List[Tuple[Tensor, ...]] = []
+    for _ in range(levels):
+        bands = _fwd_nd_level(approx, ndim, mode, scheme)
+        approx = bands[0]
+        details.append(tuple(bands[1:]))
+    return PyramidND(approx=approx, details=tuple(reversed(details)))
+
+
+def dwt_inv_nd(pyr: PyramidND, mode: str = "paper", scheme="cdf53", checked=None) -> Tensor:
+    """Inverse of :func:`dwt_fwd_nd`."""
+    if pyr.details and _ranges.checked_enabled(checked):
+        return _ranges.run_checked_inv(
+            lambda p: dwt_inv_nd(p, mode=mode, scheme=scheme, checked=False),
+            pyr, scheme=scheme, levels=pyr.levels, mode=mode, ndim=pyr.ndim,
+            label="lifting.dwt_inv_nd",
+        )
+    approx = promote_narrow(pyr.approx)
+    if not pyr.details:
+        return approx
+    ndim = pyr.ndim
+    for lvl in pyr.details:  # coarsest first
+        approx = _inv_nd_level([approx] + [promote_narrow(b) for b in lvl], ndim, mode, scheme)
+    return approx
+
+
+def pack_nd(pyr: PyramidND, ndim: Optional[int] = None) -> Tensor:
+    """Flatten [approx, then per-level detail bands coarsest->finest, code
+    order] along the last axis (the N-D analogue of :func:`pack2d`).
+
+    ``ndim`` is derived from the band structure; a levels=0 identity
+    pyramid carries no bands, so it must be passed explicitly there.
+    """
+    if pyr.details:
+        nd = pyr.ndim
+        if ndim is not None and ndim != nd:
+            raise ValueError(f"ndim={ndim} but pyramid has ndim={nd}")
+    elif ndim is None:
+        raise ValueError("levels=0 pyramid: pass ndim explicitly")
+    else:
+        nd = ndim
+    lead = tuple(pyr.approx.shape[:-nd])
+
+    def flat(a: Tensor) -> Tensor:
+        return a.reshape(lead + (int(np.prod(a.shape[-nd:])),))
+
+    parts = [flat(pyr.approx)]
+    for lvl in pyr.details:
+        parts.extend(flat(b) for b in lvl)
+    return torch.cat(parts, dim=-1)
+
+
+def unpack_nd(flat: Tensor, shape: Tuple[int, ...], levels: int) -> PyramidND:
+    """Inverse of :func:`pack_nd` for an original trailing ``shape``."""
+    a_shape, det_shapes = band_shapes_nd(tuple(shape), levels)
+    lead = tuple(flat.shape[:-1])
+    off = 0
+
+    def take(shp: Tuple[int, ...]) -> Tensor:
+        nonlocal off
+        n = int(np.prod(shp))
+        part = flat[..., off : off + n]
+        off += n
+        return part.reshape(lead + tuple(shp))
+
+    approx = take(a_shape)
+    details = tuple(tuple(take(shp) for shp in lvl) for lvl in det_shapes)
+    return PyramidND(approx=approx, details=details)

@@ -653,24 +653,14 @@ def _overflow(label: str, detail: str) -> IntegerOverflowError:
 
 def _step_down(cur: torch.Tensor, *, scheme, mode: str, ndim: int) -> torch.Tensor:
     """The next level's approximation of ``cur``, through the port's own
-    dispatch (kernels on the card) with ``checked=False``: re-entering
-    checked mode here (``REPRO_DWT_CHECKED`` set) would re-check a level
-    that was just certified."""
-    if ndim == 1:
-        from repro_torch.kernels import ops
+    dispatch (``kernels.dwt_fwd_nd``: the 1-D, 2-D or volume kernels on
+    the card) with ``checked=False``: re-entering checked mode here
+    (``REPRO_DWT_CHECKED`` set) would re-check a level that was just
+    certified."""
+    from repro_torch.kernels import fused3d
 
-        return ops.dwt_fwd(cur, levels=1, mode=mode, scheme=scheme, checked=False).approx
-    if ndim == 2:
-        from repro_torch.kernels import fused2d
-
-        # the LL of one 2-D level is the reference's N-D approximation
-        # (rows first, then columns)
-        return fused2d.dwt_fwd_2d_multi(cur, levels=1, mode=mode, scheme=scheme,
-                                        checked=False).ll
-    raise NotImplementedError(
-        f"checked {ndim}-D stepping is not ported to repro_torch yet; see "
-        "ROADMAP.md Queue 1 item 5 (the 3-D engine)"
-    )
+    return fused3d.dwt_fwd_nd(cur, levels=1, mode=mode, scheme=scheme, ndim=ndim,
+                              checked=False).approx
 
 
 def _check_cascade(

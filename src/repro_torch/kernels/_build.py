@@ -40,7 +40,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-SOURCES = ("whole2d", "tiled2d", "rice", "lift1d")
+SOURCES = ("whole2d", "tiled2d", "rice", "lift1d", "whole3d", "slab3d")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -65,6 +65,14 @@ _SIGNATURES = {
     "lift1d": {
         "repro_lift1d_fwd": [_I] + [_P] * 3 + [_I] * 5 + [_P, _I, _P],
         "repro_lift1d_inv": [_I] + [_P] * 3 + [_I] * 5 + [_P, _I, _P],
+    },
+    "whole3d": {
+        "repro_whole3d_fwd": [_I] + [_P] * 16 + [_I] * 9 + [_P, _I, _P],
+        "repro_whole3d_inv": [_I] + [_P] * 16 + [_I] * 9 + [_P, _I, _P],
+    },
+    "slab3d": {
+        "repro_slab3d_fwd": [_I] + [_P] * 16 + [_I] * 10 + [_P, _I, _P],
+        "repro_slab3d_inv": [_I] + [_P] * 16 + [_I] * 10 + [_P, _I, _P],
     },
 }
 

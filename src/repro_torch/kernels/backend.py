@@ -23,6 +23,10 @@ the lane-aligned 252 tile, the 8 x 256 1-D blocks) is carried.
 ``REPRO_DWT_TILE`` ("N" or "TH,TW") keeps its reference meaning: it
 forces the tiled engine for every tileable image and sets the tile —
 the one test lever that forces multi-tile grids in both packages.
+``REPRO_DWT_SLAB`` ("TD", even, >= 2) keeps its reference meaning too:
+it forces the depth-slab 3-D engine for every volume that can slab and
+sets the slab depth.  The TPU's 3-D constants (ten resident buffers,
+the default slab of 8) are not carried either.
 """
 from __future__ import annotations
 
@@ -165,6 +169,30 @@ def row_geometry(rows: int, w: int, device: Optional[torch.device] = None) -> Di
     return {"rb": rb, "row_global": row_global, "scratch": rows * w if row_global else 0}
 
 
+STRIP = 32  # columns per block of a column or slab pass: one warp's worth
+
+
+def strip_width(n: int, device: Optional[torch.device] = None) -> int:
+    """Columns per block of a pass that stages ``n`` samples of each
+    column in shared memory (csrc/passes.cuh): 32, halved until the strip
+    fits one block's shared memory; 0 when even one column does not (the
+    pass then stages its lines in a global scratch buffer)."""
+    limit = budgets(device)["smem_per_block"]
+    cw = STRIP
+    while cw > 1 and n * cw * 4 > limit:
+        cw //= 2
+    return 0 if n * cw * 4 > limit else cw
+
+
+def col_scratch(nb: int, n: int, widths, cw: int) -> int:
+    """Global scratch entries of a column pass over ``nb`` batches of
+    planes ``widths`` columns wide that stages its lines in device memory
+    (``cw == 0``): one n x 32 strip per block; 0 otherwise."""
+    if cw:
+        return 0
+    return nb * sum(_cdiv(wp, STRIP) for wp in widths) * n * STRIP
+
+
 # ---------------------------------------------------------------------------
 # Block geometry of the windowed 1-D kernels (csrc/lift1d.cu).
 # ---------------------------------------------------------------------------
@@ -206,6 +234,62 @@ def pick_blocks(
 
 
 # ---------------------------------------------------------------------------
+# 3-D budgets: the whole-volume kernel and the depth-slab engine
+# (csrc/whole3d.cu, csrc/slab3d.cu).
+# ---------------------------------------------------------------------------
+
+_SLAB_ENV = "REPRO_DWT_SLAB"
+_MIN_SLAB = 2  # slabs are even and >= 2 so every window has a full halo
+# a depth window takes at most a quarter of the SM's shared memory, so
+# four blocks can be resident on one SM
+_SLAB_BLOCKS_PER_SM = 4
+
+
+def whole3d_budget_elems(device: Optional[torch.device] = None) -> int:
+    """Largest per-volume sample count the whole-volume kernel runs in one
+    block (all three axes in shared memory: one read, eight band writes);
+    larger volumes slab where they can, and otherwise run the
+    whole-volume kernel's three passes through device memory."""
+    return budgets(device)["smem_per_block"] // 4
+
+
+def slab_forced() -> bool:
+    """True when ``REPRO_DWT_SLAB`` is set: the depth-slab engine is
+    forced for every volume that can slab, budget or not."""
+    return bool(os.environ.get(_SLAB_ENV, "").strip())
+
+
+def _slab_env_override() -> Optional[int]:
+    env = os.environ.get(_SLAB_ENV, "").strip()
+    if not env:
+        return None
+    try:
+        td = int(env)
+    except ValueError as e:
+        raise ValueError(f"{_SLAB_ENV}={env!r}: expected an integer") from e
+    if td < _MIN_SLAB or td % 2:
+        raise ValueError(f"{_SLAB_ENV}={env!r}: slab depth must be even and >= {_MIN_SLAB}")
+    return td
+
+
+def pick_slab(d: int, h: int, w: int, halo: int = 2, device: Optional[torch.device] = None) -> int:
+    """Core slab depth TD of a depth-slab level of a (d, h, w) volume.
+
+    The largest even TD >= 2 whose int32 depth window ``(TD + 2*halo)``
+    deep and one strip of ``min(32, h*w)`` plane columns wide fits a
+    quarter of an SM's shared memory; then never deeper than the volume
+    (odd depth rounds up to even).  ``REPRO_DWT_SLAB`` overrides.
+    """
+    override = _slab_env_override()
+    if override is not None:
+        return override
+    share = budgets(device)["smem_per_sm"] // _SLAB_BLOCKS_PER_SM
+    td = share // (4 * min(STRIP, h * w)) - 2 * halo
+    td = min(td - td % 2, d + d % 2)
+    return max(td, _MIN_SLAB)
+
+
+# ---------------------------------------------------------------------------
 # Launch counters.
 # ---------------------------------------------------------------------------
 
@@ -216,7 +300,8 @@ class LaunchCounter:
     main path went through the kernels; the plain versions never
     count.  Names: ``whole2d_fwd`` / ``whole2d_inv``, ``tiled2d_fwd`` /
     ``tiled2d_inv``, ``lift1d_fwd`` / ``lift1d_inv``, ``rows1d_fwd`` /
-    ``rows1d_inv`` (the 1-D row-pass fallback), ``rice_encode`` /
+    ``rows1d_inv`` (the 1-D row-pass fallback), ``whole3d_fwd`` /
+    ``whole3d_inv``, ``slab3d_fwd`` / ``slab3d_inv``, ``rice_encode`` /
     ``rice_compact`` / ``rice_decode``."""
 
     def __init__(self):

@@ -62,13 +62,6 @@ def _inv2d_math(ll: Tensor, lh: Tensor, hl: Tensor, hh: Tensor, mode: str, schem
 # Whole-image kernels (csrc/whole2d.cu).
 # ---------------------------------------------------------------------------
 
-_COL_STRIP = 32  # columns per column-pass block: one warp's worth
-
-
-def _cdiv(a: int, b: int) -> int:
-    return (a + b - 1) // b
-
-
 def whole_geometry(
     b: int, h: int, w: int, device: Optional[torch.device] = None
 ) -> Dict[str, int]:
@@ -80,21 +73,11 @@ def whole_geometry(
     a global scratch buffer instead (``row_global`` / ``col_global``) of
     ``scratch`` int32 entries, shared by both passes.
     """
-    limit = _backend.budgets(device)["smem_per_block"]
-    rows = _backend.row_geometry(h, w, device)
-    row_global, rb = rows["row_global"], rows["rb"]
-    cw = _COL_STRIP
-    while cw > 1 and h * cw * 4 > limit:
-        cw //= 2
-    col_global = int(h * cw * 4 > limit)
-    if col_global:
-        cw = _COL_STRIP
-    scratch = b * rows["scratch"]
-    if col_global:
-        strips = _cdiv(w - w // 2, cw) + _cdiv(w // 2, cw)
-        scratch = max(scratch, strips * b * h * cw)
-    return {"rb": rb, "row_global": row_global, "cw": cw, "col_global": col_global,
-            "scratch": scratch}
+    rows = _backend.row_geometry(b * h, w, device)
+    cw = _backend.strip_width(h, device)
+    scratch = max(rows["scratch"], _backend.col_scratch(b, h, (w - w // 2, w // 2), cw))
+    return {"rb": rows["rb"], "row_global": rows["row_global"], "cw": cw or _backend.STRIP,
+            "col_global": int(cw == 0), "scratch": scratch}
 
 
 def _geometry_args(g: Dict[str, int]) -> Tuple[int, ...]:

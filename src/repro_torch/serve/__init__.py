@@ -1,4 +1,4 @@
-"""The port's serve tier: the 2-D wavelet-transform route.
+"""The port's serve tier: the 2-D and 3-D wavelet-transform routes.
 
     scheduler.py   bucketed FIFO admission — shape routing, load
                    shedding, deadlines (host-only, no device work)
@@ -9,8 +9,8 @@
     routes.py      progressive fidelity tiers (thumbnail / refine /
                    full) from one stored bitstream per micro-batch
 
-Port of ``repro.serve`` without the 3-D buckets, the sharded route and
-the LM engine (``ROADMAP.md``, Queue 1).
+Port of ``repro.serve`` without the sharded route and the LM engine
+(``ROADMAP.md``, Queue 1).
 """
 from repro_torch.serve.engine import (  # noqa: F401
     TransformRequest,

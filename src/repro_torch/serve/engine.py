@@ -1,16 +1,18 @@
-"""Wavelet transform serving engine: the 2-D route of the port.
+"""Wavelet transform serving engine: 2-D images and 3-D volumes.
 
-Port of ``repro.serve.engine`` for 2-D buckets.  Requests of any shape a
-registered bucket contains are admitted (``serve/scheduler.py``): the
-batch row is zero-padded to the bucket, the transform stays static
-shaped, and the response records the original shape so clients crop
-after the inverse transform (:func:`crop_result`) — the padding lies
-outside the data, so reconstruction stays bit-exact.
+Port of ``repro.serve.engine``.  Requests of any shape a registered
+bucket contains are admitted (``serve/scheduler.py``): the batch row is
+zero-padded to the bucket, the transform stays static shaped, and the
+response records the original shape so clients crop after the inverse
+transform (:func:`crop_result`) — the padding lies outside the data, so
+reconstruction stays bit-exact.
 
 Each micro-batch is assembled on the host as int32, moved to the
-engine's ``device`` and transformed by ``kernels.dwt_fwd_2d_multi``: on
-``cuda`` (the default) through the hand-written kernels, on ``cpu``
-through their plain versions.  ``device="cuda"`` on a machine without a
+engine's ``device`` and transformed by ``kernels.dwt_fwd_2d_multi``
+(2-D buckets, ``(H, W)``) or ``kernels.dwt_fwd_nd(..., ndim=3)`` (volume
+buckets, ``(D, H, W)``, or the legacy ``depth=``): on ``cuda`` (the
+default) through the hand-written kernels, on ``cpu`` through their
+plain versions.  ``device="cuda"`` on a machine without a
 card raises at the first :meth:`WaveletServeEngine.warmup` or
 :meth:`~WaveletServeEngine.step`; the engine never serves on the CPU
 unless asked to.
@@ -24,7 +26,8 @@ transform.
 in the reference: each micro-batch ships as ONE WZRC container whose
 lead dim is the batch (``codec.encode_batch``), Rice-coded on the device
 the bands live on (on the card, the Rice kernels; only the coded bytes
-come to the host).  Every request carries the container and its
+come to the host); a volume batch is a ``KIND_ND`` container with
+``ndim=3``.  Every request carries the container and its
 ``batch_index``.  An injected or other failure of the batch encode
 degrades to per-request containers; a failure of one request's encode
 quarantines that request alone.  A kernel that fails to build or launch
@@ -37,9 +40,8 @@ submit, as the reference: one host min/max and a cascade trace
 (``core.ranges.assert_interval_safe``) reject a request whose samples
 could wrap a lifting intermediate before it rides a batch.
 
-Not ported yet, and refused with ``NotImplementedError``: 3-D buckets
-(ROADMAP.md Queue 1, item 5: the 3-D engine) and ``mesh=`` (item 7: the
-sharded transform).
+Not ported yet, and refused with ``NotImplementedError``: ``mesh=``
+(ROADMAP.md Queue 1, item 7: the sharded transform).
 """
 from __future__ import annotations
 
@@ -60,23 +62,19 @@ from repro_torch.serve.scheduler import BucketScheduler
 
 Shape = Tuple[int, ...]
 
-_NOT_PORTED = {
-    "3-D buckets": "ROADMAP.md Queue 1 item 5 (the 3-D engine)",
-    "mesh": "ROADMAP.md Queue 1 item 7 (the sharded transform)",
-}
 
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet; see {_NOT_PORTED[what]}"
-    )
+def _pyramid_rows(pyr, index):
+    """The same pyramid (Pyramid2D or PyramidND) with every band indexed
+    along its leading batch dim."""
+    first, details = pyr
+    return type(pyr)(first[index], tuple(tuple(b[index] for b in lvl) for lvl in details))
 
 
 @dataclass
 class TransformRequest:
     uid: int
     image: np.ndarray  # integer samples; any shape a registered bucket contains
-    pyramid: Optional[Any] = None  # Pyramid2D of device tensors (when served)
+    pyramid: Optional[Any] = None  # Pyramid2D / PyramidND of device tensors (when served)
     encoded: Optional[bytes] = None  # WZRC container (encoded-response route)
     batch_index: Optional[int] = None  # row in the batch container (None =
     # single-request container: decode with codec.decode_pyramid directly)
@@ -93,18 +91,20 @@ class TransformRequest:
 
 @dataclass
 class WaveletServeEngine:
-    """Continuous micro-batched 2-D DWT serving over shape buckets.
+    """Continuous micro-batched 2-D / 3-D DWT serving over shape buckets.
 
     ``buckets`` registers the served shape set — e.g.
-    ``buckets=[(1024, 1024), (2048, 2048)]`` — each with its own FIFO
-    queue and its own cached transform; a request routes to the smallest
-    bucket containing its shape and is zero-padded up to it.  The legacy
-    single-bucket constructor (``height=`` / ``width=``) still works.
+    ``buckets=[(1024, 1024), (2048, 2048)]``, or volume buckets such as
+    ``buckets=[(16, 256, 256), (64, 512, 512)]`` (one rank per engine) —
+    each with its own FIFO queue and its own cached transform; a request
+    routes to the smallest bucket containing its shape and is zero-padded
+    up to it.  The legacy single-bucket constructor (``height=`` /
+    ``width=``, and ``depth=`` for a volume bucket) still works.
     """
 
     height: Optional[int] = None
     width: Optional[int] = None
-    depth: Optional[int] = None  # 3-D buckets: not ported yet
+    depth: Optional[int] = None  # legacy single (D, H, W) volume bucket
     buckets: Optional[Sequence[Sequence[int]]] = None
     batch_slots: int = 8
     levels: int = 2
@@ -125,7 +125,10 @@ class WaveletServeEngine:
         from repro_torch.core import schemes as _schemes
 
         if self.mesh is not None:
-            raise _not_ported("mesh")
+            raise NotImplementedError(
+                "mesh is not ported to repro_torch yet; see ROADMAP.md Queue 1 item 7 "
+                "(the sharded transform)"
+            )
         if self.batch_slots < 1:
             raise ValueError(f"batch_slots must be >= 1, got {self.batch_slots}")
         if self.max_retries < 0:
@@ -143,13 +146,15 @@ class WaveletServeEngine:
             if self.height is None or self.width is None:
                 raise ValueError("register buckets= or the legacy height=/width= pair")
             if self.depth is not None:
-                raise _not_ported("3-D buckets")
-            bucket_list = [(self.height, self.width)]
+                bucket_list = [(self.depth, self.height, self.width)]
+            else:
+                bucket_list = [(self.height, self.width)]
 
         for b in bucket_list:
             if len(b) == 3:
-                raise _not_ported("3-D buckets")
-            _lifting.check_levels_2d(b[0], b[1], self.levels)
+                _lifting.check_levels_nd(b, self.levels)
+            else:
+                _lifting.check_levels_2d(b[0], b[1], self.levels)
 
         self.scheduler = BucketScheduler(
             bucket_list, max_queue=self.max_queue, deadline_s=self.deadline_s
@@ -279,13 +284,13 @@ class WaveletServeEngine:
         alone; kernel build and launch errors propagate."""
         from repro_torch.codec import container
 
+        nd = 3 if len(active[0].bucket) == 3 else None
         n = len(active)
         try:
             inject.check("serve.encode_batch")
-            sliced = type(pyr)(
-                ll=pyr.ll[:n], details=tuple(tuple(b[:n] for b in lvl) for lvl in pyr.details)
+            blob = container.encode_batch(
+                _pyramid_rows(pyr, slice(0, n)), scheme=self.scheme, mode=self.mode, ndim=nd
             )
-            blob = container.encode_batch(sliced, scheme=self.scheme, mode=self.mode)
         except Exception as e:  # noqa: BLE001 - degrade to per-request
             if is_kernel_fault(e):  # never "served without bytes"
                 raise
@@ -309,7 +314,9 @@ class WaveletServeEngine:
         for r in active:
             try:
                 inject.check("serve.encode")
-                r.encoded = container.encode_pyramid(r.pyramid, scheme=self.scheme, mode=self.mode)
+                r.encoded = container.encode_pyramid(
+                    r.pyramid, scheme=self.scheme, mode=self.mode, ndim=nd
+                )
                 r.batch_index = None
             except Exception as e:  # noqa: BLE001 - quarantine per request
                 if is_kernel_fault(e):
@@ -363,10 +370,7 @@ class WaveletServeEngine:
                 self.scheduler.requeue_front(bucket, live)
                 raise
             for i, r in enumerate(active):
-                r.pyramid = type(pyr)(
-                    ll=pyr.ll[i],
-                    details=tuple(tuple(b[i] for b in lvl) for lvl in pyr.details),
-                )
+                r.pyramid = _pyramid_rows(pyr, i)
             if self.encode_response and active:
                 try:
                     self._encode_batch(active, pyr)

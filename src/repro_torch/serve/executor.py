@@ -4,7 +4,8 @@ Port of ``repro.serve.executor``.  Every ``(bucket, batch_slots, scheme,
 levels, mode, device)`` combination the engine can emit maps to exactly
 one callable, built on first use and reused for the life of the engine.
 PyTorch runs eagerly, so a callable is the level chain of
-``kernels.dwt_fwd_2d_multi`` bound to its key — there is no ``jax.jit``
+``kernels.dwt_fwd_2d_multi`` (2-D buckets) or ``kernels.dwt_fwd_nd``
+(``ndim=3``, volume buckets) bound to its key — there is no ``jax.jit``
 to trace and no donated input buffer; what the cache still pins is that
 each key is resolved once.  ``hits`` / ``misses`` / ``compiles`` keep
 their reference meaning (``compiles`` == distinct callables built).
@@ -22,7 +23,7 @@ Shape = Tuple[int, ...]
 class ExecKey(NamedTuple):
     """Everything that selects a distinct transform callable."""
 
-    bucket: Shape  # (H, W)
+    bucket: Shape  # (H, W) or (D, H, W)
     batch_slots: int
     scheme: str
     levels: int
@@ -51,12 +52,16 @@ class TransformExecutor:
     def _build(key: ExecKey) -> Callable:
         from repro_torch import kernels as K
 
-        def transform(batch, _key=key):
-            # checked=False: admission (engine.submit) already certified
-            # every request, as the reference's jitted transform skips it
-            return K.dwt_fwd_2d_multi(
-                batch, levels=_key.levels, mode=_key.mode, scheme=_key.scheme, checked=False
-            )
+        # checked=False: admission (engine.submit) already certified every
+        # request, as the reference's jitted transform skips it
+        if len(key.bucket) == 3:
+            def transform(batch, _key=key):
+                return K.dwt_fwd_nd(batch, levels=_key.levels, mode=_key.mode,
+                                    scheme=_key.scheme, ndim=3, checked=False)
+        else:
+            def transform(batch, _key=key):
+                return K.dwt_fwd_2d_multi(batch, levels=_key.levels, mode=_key.mode,
+                                          scheme=_key.scheme, checked=False)
 
         return transform
 

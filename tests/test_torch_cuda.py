@@ -227,3 +227,72 @@ def test_cuda_1d_library_and_codec_paths(cuda_device):
     assert data == cpu
     for a, b in zip(TSTREAM.decode_stream(data, device=cuda_device), chunks):
         assert torch.equal(a.cpu(), torch.from_numpy(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("name", SCHEMES)
+def test_cuda_3d_kernels_match_plain_versions(name, mode, cuda_device):
+    """Both 3-D kernels against their plain versions: the one-block
+    whole-volume path, the three-pass path (volumes past one block), and
+    depth slabs at the picked and at forced depths."""
+    from repro_torch.kernels import backend as TB
+    from repro_torch.kernels import fused3d as T3
+
+    rng = np.random.default_rng(17)
+    sch = TS.get_scheme(name)
+    shapes = [(2, 2, 2), (3, 5, 7), (5, 9, 7), (17, 33, 31), (16, 64, 64), (33, 130, 129)]
+    for shp in shapes:
+        for kind in ("rand", "min", "max") if shp == (3, 5, 7) else ("rand",):
+            x = _img(rng, (2,) + shp) if kind == "rand" else np.full(
+                (2,) + shp, I32.min if kind == "min" else I32.max, np.int32)
+            xt = torch.from_numpy(x).to(cuda_device)
+            want = T3.fwd3d_whole_plain(xt, mode, name)
+            for a, b in zip(T3.fwd3d_whole_cuda(xt, mode, name), want):
+                assert torch.equal(a, b), (shp, kind)
+            assert torch.equal(T3.inv3d_whole_cuda(want, mode, name),
+                               T3.inv3d_whole_plain(want, mode, name)), (shp, kind)
+            if not sch.can_window(shp[0]):
+                continue
+            for td in {2, 4, TB.pick_slab(*shp, sch.halo, cuda_device)}:
+                for a, b in zip(T3.fwd3d_slab_cuda(xt, mode, td, name), want):
+                    assert torch.equal(a, b), (shp, kind, td)
+                assert torch.equal(T3.inv3d_slab_cuda(want, mode, td, name),
+                                   T3.inv3d_slab_plain(want, mode, td, name)), (shp, kind, td)
+    torch.cuda.synchronize(cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_3d_library_serve_and_codec_paths(cuda_device):
+    from repro_torch.codec import stream as TSTREAM
+
+    rng = np.random.default_rng(19)
+    x = torch.from_numpy(_img(rng, (2, 33, 70, 66), -2048, 2048)).to(cuda_device)
+    TK.launches.reset()
+    for name in SCHEMES:
+        pyr = TK.dwt_fwd_nd(x, levels=3, scheme=name, checked=True)
+        want = TK.dwt_fwd_nd(x.cpu(), levels=3, scheme=name)
+        for a, b in zip([pyr.approx] + [b for lvl in pyr.details for b in lvl],
+                        [want.approx] + [b for lvl in want.details for b in lvl]):
+            assert torch.equal(a.cpu(), b)
+        assert torch.equal(TK.dwt_inv_nd(pyr, scheme=name, checked=True), x)
+        blob = TCODEC.encode_pyramid(pyr, scheme=name, ndim=3)
+        assert blob == TCODEC.encode_pyramid(want, scheme=name, ndim=3)
+        assert torch.equal(TCODEC.inverse_transform(TCODEC.decode_pyramid(blob, device=cuda_device)),
+                           x)
+    counts = TK.launches.snapshot()
+    assert all(counts.get(k, 0) > 0 for k in
+               ("whole3d_fwd", "whole3d_inv", "slab3d_fwd", "slab3d_inv")), counts
+    vol = _img(rng, (11, 40, 36), -2048, 2048)
+    data = b"".join(TSTREAM.encode_volume(vol, slab=4, levels=2, device=cuda_device))
+    assert data == b"".join(TSTREAM.encode_volume(vol, slab=4, levels=2, device="cpu"))
+    assert torch.equal(TSTREAM.decode_volume(data, device=cuda_device).cpu(),
+                       torch.from_numpy(vol))
+    eng = WaveletServeEngine(buckets=[(8, 32, 32)], batch_slots=2, levels=2,
+                             device=str(cuda_device), encode_response=True)
+    reqs = [TransformRequest(uid=i, image=_img(rng, (8, 32, 32) if i else (5, 30, 17)))
+            for i in range(3)]
+    for r in eng.run(reqs):
+        row = TCODEC.decode_batch(r.encoded, device=cuda_device)[r.batch_index]
+        xr = crop_result(TK.dwt_inv_nd(row), r)
+        assert torch.equal(xr, torch.from_numpy(r.image).to(cuda_device))

@@ -36,7 +36,7 @@ def test_the_scan_sees_every_port_module():
                  "src/repro_torch/kernels/fused2d.py", "src/repro_torch/serve/engine.py",
                  "src/repro_torch/codec/rice.py", "src/repro_torch/core/ranges.py",
                  "src/repro_torch/kernels/ops.py", "src/repro_torch/kernels/dwt53.py",
-                 "src/repro_torch/configs/dwt53.py"):
+                 "src/repro_torch/configs/dwt53.py", "src/repro_torch/kernels/fused3d.py"):
         assert must in names
 
 
