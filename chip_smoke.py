@@ -58,8 +58,12 @@ Phases (any failure raises and the script exits nonzero):
    depth-slab kernels (``slab3d.cu``) against their plain versions with
    ``torch.equal``: 4 schemes x 2 modes, shapes (2, 2, 2) to
    (33, 130, 129), int32 extremes, slabs of depth 2, 4 and the picked
-   depth, lines too long for shared memory; the library entry with lead
-   dims (2, 3) and with ``REPRO_DWT_SLAB`` = 2 and 4.
+   depth, lines too long for shared memory; shapes that force each
+   branch of the slab level's plane pass (H of 2, 3 and 5, odd H and W,
+   W % 8 == 0, several strips of rows, haar at odd H and rows too wide
+   for a block taking the row and column passes); the 4 x (64, 512, 512)
+   cdf53 and 97m batches; the library entry with lead dims (2, 3) and
+   with ``REPRO_DWT_SLAB`` = 2 and 4.
 8. The 3-D path, with the counters reset just before and read just after
    and a guard counting plain-version calls on CUDA tensors: one
    (64, 512, 512) CT-like 12-bit volume (the repo's ``SHAPE_3D_LARGE``)
@@ -82,7 +86,8 @@ Phases (any failure raises and the script exits nonzero):
    cdf22 row pass at (a) and (c); the 4 levels of one 4 x (64, 512, 512)
    batch for the 3-D kernels, and the three-pass whole-volume path at its
    level 1 in cdf22), beside its plain version and its bound, comparing
-   outputs once more.
+   outputs once more; for each slab level, which plane path ran and the
+   device ms of each kernel it launched (``torch.profiler``).
 10. Print the ``{"kernels": [...]}`` line, the card line, and last the
    ``{"ok": true, ...}`` line.  ``--json-out PATH`` also writes the whole
    record (every batch latency, every level's, band's and shape's time)
@@ -1076,7 +1081,8 @@ def parity_sweep_3d(rng, dev) -> dict:
     from repro_torch.kernels import backend as B
     from repro_torch.kernels import fused3d as F3
 
-    cases = {"whole3d": 0, "whole3d_multipass": 0, "slab3d": 0, "library": 0}
+    cases = {"whole3d": 0, "whole3d_multipass": 0, "slab3d": 0, "slab3d_plane_pass": 0,
+             "slab3d_row_col_passes": 0, "library": 0}
 
     def check(label, xt, mode, name, tds):
         want = F3.fwd3d_whole_plain(xt, mode, name)
@@ -1085,6 +1091,9 @@ def parity_sweep_3d(rng, dev) -> dict:
                         [F3.inv3d_whole_plain(want, mode, name)])
         fused = F3.volume_geometry(*xt.shape, dev)["fused"]
         cases["whole3d" if fused else "whole3d_multipass"] += 1
+        check_slab(label, xt, mode, name, tds, want)
+
+    def check_slab(label, xt, mode, name, tds, want):
         for td in tds:
             lab = f"{label}/td{td}"
             _equal_or_raise("slab3d_fwd " + lab, F3.fwd3d_slab_cuda(xt, mode, td, name),
@@ -1092,9 +1101,17 @@ def parity_sweep_3d(rng, dev) -> dict:
             _equal_or_raise("slab3d_inv " + lab, [F3.inv3d_slab_cuda(want, mode, td, name)],
                             [F3.inv3d_slab_plain(want, mode, td, name)])
             cases["slab3d"] += 1
+            plane = F3.slab_geometry(*xt.shape, td, name, False, dev)["plane_rows"]
+            cases["slab3d_plane_pass" if plane else "slab3d_row_col_passes"] += 1
 
+    # the plane pass's branches: H of 2, 3 and 5 (windows taller than the
+    # slice), odd H and W (4-byte copies), W % 8 == 0 (16-byte copies),
+    # several strips of rows with a ragged last one (130, 101, 77 rows),
+    # haar at odd H (row and column passes)
     shapes = [(2, 2, 2), (3, 5, 7), (5, 9, 7), (8, 16, 16), (17, 33, 31), (9, 64, 64),
-              (12, 6, 5), (16, 64, 64), (33, 130, 129)]
+              (12, 6, 5), (16, 64, 64), (33, 130, 129), (4, 2, 16), (6, 3, 8), (5, 5, 24),
+              (7, 13, 40), (4, 20, 9), (8, 9, 16), (3, 101, 1000), (3, 77, 1001),
+              (4, 130, 512)]
     for name in SCHEMES:
         sch = S.get_scheme(name)
         for mode in MODES:
@@ -1144,6 +1161,15 @@ def parity_sweep_3d(rng, dev) -> dict:
         x = torch.from_numpy(rng.integers(-(1 << 20), 1 << 20, (1,) + shp, dtype=np.int32)).to(dev)
         check(f"cdf53/paper/{shp}", x, "paper", "cdf53",
               [B.pick_slab(*shp, S.get_scheme("cdf53").halo, dev)])
+    # the main path's full-size batches, both windowed schemes of the sweep
+    for name in ("cdf53", "97m"):
+        x = torch.from_numpy(rng.integers(-(1 << 20), 1 << 20, (VOL_SLOTS,) + VOLUME,
+                                          dtype=np.int32)).to(dev)
+        td = B.pick_slab(*VOLUME, S.get_scheme(name).halo, dev)
+        want = [b.contiguous() for b in F3.fwd3d_slab_plain(x, "jpeg2000", td, name)]
+        check_slab(f"{name}/jpeg2000/{VOL_SLOTS}x{VOLUME}", x, "jpeg2000", name, [td], want)
+        del x, want
+    torch.cuda.empty_cache()
     torch.cuda.synchronize(dev)
     return cases
 
@@ -1264,10 +1290,16 @@ def volume_paths(rng, dev) -> dict:
         for name, mode in ((VOL_SCHEME, VOL_MODE), ("cdf22", "paper")):
             for checked in (False, True):
                 kw = dict(mode=mode, scheme=name, checked=checked)
-                pyr, t_f = _timed(lambda: K.dwt_fwd_nd(x1, levels=VOL_LEVELS, **kw), dev)
-                y, t_i = _timed(lambda: K.dwt_inv_nd(pyr, **kw), dev)
+                t_f, t_i = [], []  # three calls each: the first pays allocator growth
+                for _ in range(3):
+                    pyr, t = _timed(lambda: K.dwt_fwd_nd(x1, levels=VOL_LEVELS, **kw), dev)
+                    t_f.append(t)
+                    y, t = _timed(lambda: K.dwt_inv_nd(pyr, **kw), dev)
+                    t_i.append(t)
                 lib[(name, checked)] = (pyr, y)
-                ms[f"{name} checked={checked}"] = {"forward": t_f, "inverse": t_i}
+                ms[f"{name} checked={checked}"] = {
+                    "forward": statistics.median(t_f), "inverse": statistics.median(t_i),
+                    "forward_first": t_f[0], "inverse_first": t_i[0]}
         for label, xo in over.items():
             try:
                 K.dwt_fwd_nd(xo, levels=VOL_LEVELS, scheme="97m", mode="paper", checked=True)
@@ -1406,6 +1438,30 @@ def volume_paths(rng, dev) -> dict:
             "stream_bytes": len(data), "breakdown_ms": breakdown}
 
 
+def _pass_ms(fn, reps: int = 5) -> dict:
+    """Device ms of each kernel ``fn`` launches, per call, by kernel name
+    (``torch.profiler``); empty when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    except RuntimeError as e:  # a profiler that cannot trace the card: the event medians stand
+        return {"profiler unavailable": str(e)[:200]}
+    out = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "cuda_time_total", 0)
+        if dev_us and ("kernel" in ev.key or "passes::" in ev.key):
+            out[ev.key.split("(")[0][:80]] = dev_us / 1e3 / reps
+    return out
+
+
 def time_3d(rng, dev) -> list:
     """Phase 9, 3-D half: CUDA-event medians of each 3-D kernel over the 4 levels of
     one 4 x (64, 512, 512) batch (cdf53 / jpeg2000: slabs at levels 1-3,
@@ -1453,8 +1509,13 @@ def time_3d(rng, dev) -> list:
             e["bytes"] += nbytes
             e["ops"] += int(ops_per_sample * n)
             e["err"] = max(e["err"], err)
-            e["levels"].append({"shape": [VOL_SLOTS, d, h, w], "ms": ms, "plain_ms": pms,
-                                "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3})
+            lv = {"shape": [VOL_SLOTS, d, h, w], "ms": ms, "plain_ms": pms,
+                  "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3}
+            if name.startswith("slab3d"):
+                g = F3.slab_geometry(VOL_SLOTS, d, h, w, td, VOL_SCHEME, name.endswith("inv"), dev)
+                lv.update(td=td, passes=g["passes"], plane_rows=g["plane_rows"],
+                          pass_ms=_pass_ms(kern))
+            e["levels"].append(lv)
         x = bands[0]
         del bands
     # the three-pass whole-volume path at full width: cdf22 cannot slab
@@ -1566,8 +1627,10 @@ def main() -> int:
 
     t = time.perf_counter()
     checks.update(parity_sweep_3d(rng, dev))
+    keys_3d = ("whole3d", "whole3d_multipass", "slab3d", "slab3d_plane_pass",
+               "slab3d_row_col_passes", "library")
     print(f"3-D parity: whole3d and slab3d kernels == plain versions on every case "
-          f"{ {k: checks[k] for k in ('whole3d', 'whole3d_multipass', 'slab3d', 'library')} } "
+          f"{ {k: checks[k] for k in keys_3d} } "
           f"({time.perf_counter() - t:.1f} s)", flush=True)
     t = time.perf_counter()
     vp = volume_paths(rng, dev)
@@ -1622,8 +1685,15 @@ def main() -> int:
         k["launches"] = vp["launches"][k["name"]]
         levels_3d[k["name"]] = {"levels": k.pop("levels"), "three_pass": k.pop("three_pass")}
         for lv in levels_3d[k["name"]]["levels"]:
+            path = ""
+            if "passes" in lv:
+                path = (f", td {lv['td']}, {lv['passes']} passes"
+                        + (f" (plane pass of {lv['plane_rows']} rows)" if lv["plane_rows"]
+                           else " (row and column passes)")
+                        + "; by kernel: " + ", ".join(f"{a} {b:.4f}"
+                                                      for a, b in lv["pass_ms"].items()))
             print(f"  {k['name']} {lv['shape']}: {lv['ms']:.4f} ms (plain {lv['plain_ms']:.3f} ms, "
-                  f"bound {lv['bound_ms']:.4f} ms)")
+                  f"bound {lv['bound_ms']:.4f} ms{path})")
         tp = levels_3d[k["name"]]["three_pass"]
         if tp:
             print(f"  {k['name']} three-pass {tp['shape']} {tp['scheme']}: {tp['ms']:.4f} ms "

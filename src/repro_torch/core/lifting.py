@@ -19,10 +19,13 @@ The N-D part (:class:`PyramidND`, :func:`dwt_fwd_nd` /
 last ``ndim`` axes, one axis at a time per level: axis -1 first, so
 ndim 1 and 2 reproduce the 1-D and 2-D transforms bit for bit; bit j of
 a band's code means highpass along axis -(j+1).  It is the plain
-version of the 3-D kernels (``kernels/fused3d.py``) and, like the
-reference's, takes ``checked=``; the 1-D and 2-D oracles do not (their
-range checks live on the kernels' entry points, ``kernels.ops`` and
-``kernels.fused2d``).
+version of the 3-D kernels (``kernels/fused3d.py``).
+
+Every transform here takes ``checked=`` as the reference's does:
+``checked=True`` (or ``REPRO_DWT_CHECKED=1``) certifies the data against
+the derived range bounds (:mod:`repro_torch.core.ranges`) and raises
+``IntegerOverflowError`` instead of ever returning wrapped bands.  The
+``dwt53_*`` aliases pass ``checked=`` through.
 """
 from __future__ import annotations
 
@@ -114,16 +117,28 @@ def inv_update(s: Tensor, d: Tensor, d_prev: Tensor, mode: str = "paper") -> Ten
 # ---------------------------------------------------------------------------
 
 
-def dwt_fwd_1d(x: Tensor, mode: str = "paper", scheme="cdf53") -> Tuple[Tensor, Tensor]:
+def dwt_fwd_1d(
+    x: Tensor, mode: str = "paper", scheme="cdf53", checked=None
+) -> Tuple[Tensor, Tensor]:
     """One forward lifting level along the last axis: (s, d) with
     len(s) = ceil(N/2), len(d) = floor(N/2); any N >= 2."""
     _check_mode(mode)
+    if _ranges.checked_enabled(checked):
+        return _ranges.run_checked(
+            lambda a: dwt_fwd_1d(a, mode=mode, scheme=scheme, checked=False),
+            x, scheme=scheme, levels=1, mode=mode, ndim=1, label="lifting.dwt_fwd_1d",
+        )
     return S.lift_fwd_axis(promote_narrow(x), scheme, axis=-1, mode=mode)
 
 
-def dwt_inv_1d(s: Tensor, d: Tensor, mode: str = "paper", scheme="cdf53") -> Tensor:
+def dwt_inv_1d(s: Tensor, d: Tensor, mode: str = "paper", scheme="cdf53", checked=None) -> Tensor:
     """One inverse lifting level (cdf53: eqs. 8-10) along the last axis."""
     _check_mode(mode)
+    if _ranges.checked_enabled(checked):
+        return _ranges.run_checked_inv(
+            lambda t: dwt_inv_1d(t[0], t[1], mode=mode, scheme=scheme, checked=False),
+            (s, d), scheme=scheme, levels=1, mode=mode, ndim=1, label="lifting.dwt_inv_1d",
+        )
     return S.lift_inv_axis(promote_narrow(s), promote_narrow(d), scheme, axis=-1, mode=mode)
 
 
@@ -139,8 +154,13 @@ class Bands2D(NamedTuple):
     hh: Tensor
 
 
-def dwt_fwd_2d(x: Tensor, mode: str = "paper", scheme="cdf53") -> Bands2D:
+def dwt_fwd_2d(x: Tensor, mode: str = "paper", scheme="cdf53", checked=None) -> Bands2D:
     """One 2-D level over the last two axes: rows then columns."""
+    if _ranges.checked_enabled(checked):
+        return _ranges.run_checked(
+            lambda a: dwt_fwd_2d(a, mode=mode, scheme=scheme, checked=False),
+            x, scheme=scheme, levels=1, mode=mode, ndim=2, label="lifting.dwt_fwd_2d",
+        )
     xf = promote_narrow(x)
     s_r, d_r = S.lift_fwd_axis(xf, scheme, axis=-1, mode=mode)
     ll, lh = S.lift_fwd_axis(s_r, scheme, axis=-2, mode=mode)
@@ -148,8 +168,13 @@ def dwt_fwd_2d(x: Tensor, mode: str = "paper", scheme="cdf53") -> Bands2D:
     return Bands2D(ll=ll, lh=lh, hl=hl, hh=hh)
 
 
-def dwt_inv_2d(bands: Bands2D, mode: str = "paper", scheme="cdf53") -> Tensor:
+def dwt_inv_2d(bands: Bands2D, mode: str = "paper", scheme="cdf53", checked=None) -> Tensor:
     """Inverse of :func:`dwt_fwd_2d` (columns then rows)."""
+    if _ranges.checked_enabled(checked):
+        return _ranges.run_checked_inv(
+            lambda b: dwt_inv_2d(b, mode=mode, scheme=scheme, checked=False),
+            bands, scheme=scheme, levels=1, mode=mode, ndim=2, label="lifting.dwt_inv_2d",
+        )
     ll, lh, hl, hh = (promote_narrow(b) for b in bands)
     s_r = S.lift_inv_axis(ll, lh, scheme, axis=-2, mode=mode)
     d_r = S.lift_inv_axis(hl, hh, scheme, axis=-2, mode=mode)
@@ -232,11 +257,18 @@ class WaveletPyramid(NamedTuple):
         )
 
 
-def dwt_fwd(x: Tensor, levels: int = 1, mode: str = "paper", scheme="cdf53") -> "WaveletPyramid":
+def dwt_fwd(
+    x: Tensor, levels: int = 1, mode: str = "paper", scheme="cdf53", checked=None
+) -> "WaveletPyramid":
     """Multi-level 1-D forward transform along the last axis.  ``levels=0``
     is the identity pyramid (no detail bands)."""
     if levels < 0:
         raise ValueError("levels must be >= 0")
+    if _ranges.checked_enabled(checked):
+        return _ranges.run_checked(
+            lambda a: dwt_fwd(a, levels=levels, mode=mode, scheme=scheme, checked=False),
+            x, scheme=scheme, levels=levels, mode=mode, ndim=1, label="lifting.dwt_fwd",
+        )
     s = promote_narrow(x)
     details: List[Tensor] = []
     for _ in range(levels):
@@ -247,29 +279,34 @@ def dwt_fwd(x: Tensor, levels: int = 1, mode: str = "paper", scheme="cdf53") -> 
     return WaveletPyramid(approx=s, details=tuple(reversed(details)))
 
 
-def dwt_inv(pyr: "WaveletPyramid", mode: str = "paper", scheme="cdf53") -> Tensor:
+def dwt_inv(pyr: "WaveletPyramid", mode: str = "paper", scheme="cdf53", checked=None) -> Tensor:
     """Multi-level 1-D inverse transform."""
+    if _ranges.checked_enabled(checked):
+        return _ranges.run_checked_inv(
+            lambda p: dwt_inv(p, mode=mode, scheme=scheme, checked=False),
+            pyr, scheme=scheme, levels=pyr.levels, mode=mode, ndim=1, label="lifting.dwt_inv",
+        )
     s = promote_narrow(pyr.approx)
     for d in pyr.details:  # coarsest first
         s = S.lift_inv_axis(s, promote_narrow(d), scheme, axis=-1, mode=mode)
     return s
 
 
-def dwt53_fwd_1d(x: Tensor, mode: str = "paper") -> Tuple[Tensor, Tensor]:
+def dwt53_fwd_1d(x: Tensor, mode: str = "paper", checked=None) -> Tuple[Tensor, Tensor]:
     """(5,3) forward level: :func:`dwt_fwd_1d` with ``scheme="cdf53"``."""
-    return dwt_fwd_1d(x, mode=mode, scheme="cdf53")
+    return dwt_fwd_1d(x, mode=mode, scheme="cdf53", checked=checked)
 
 
-def dwt53_inv_1d(s: Tensor, d: Tensor, mode: str = "paper") -> Tensor:
-    return dwt_inv_1d(s, d, mode=mode, scheme="cdf53")
+def dwt53_inv_1d(s: Tensor, d: Tensor, mode: str = "paper", checked=None) -> Tensor:
+    return dwt_inv_1d(s, d, mode=mode, scheme="cdf53", checked=checked)
 
 
-def dwt53_fwd(x: Tensor, levels: int = 1, mode: str = "paper") -> "WaveletPyramid":
-    return dwt_fwd(x, levels=levels, mode=mode, scheme="cdf53")
+def dwt53_fwd(x: Tensor, levels: int = 1, mode: str = "paper", checked=None) -> "WaveletPyramid":
+    return dwt_fwd(x, levels=levels, mode=mode, scheme="cdf53", checked=checked)
 
 
-def dwt53_inv(pyr: "WaveletPyramid", mode: str = "paper") -> Tensor:
-    return dwt_inv(pyr, mode=mode, scheme="cdf53")
+def dwt53_inv(pyr: "WaveletPyramid", mode: str = "paper", checked=None) -> Tensor:
+    return dwt_inv(pyr, mode=mode, scheme="cdf53", checked=checked)
 
 
 class PyramidND(NamedTuple):
@@ -330,25 +367,59 @@ def check_levels_2d(h: int, w: int, levels: int) -> None:
 
 
 def dwt_fwd_2d_multi(
-    x: Tensor, levels: int = 1, mode: str = "paper", scheme="cdf53"
+    x: Tensor, levels: int = 1, mode: str = "paper", scheme="cdf53", checked=None
 ) -> Pyramid2D:
     """Multi-level 2-D forward transform (Mallat pyramid, recurse on LL)."""
     check_levels_2d(x.shape[-2], x.shape[-1], levels)
+    if _ranges.checked_enabled(checked):
+        return _ranges.run_checked(
+            lambda a: dwt_fwd_2d_multi(a, levels=levels, mode=mode, scheme=scheme,
+                                       checked=False),
+            x, scheme=scheme, levels=levels, mode=mode, ndim=2,
+            label="lifting.dwt_fwd_2d_multi",
+        )
     ll = promote_narrow(x)
     details: List[Tuple[Tensor, Tensor, Tensor]] = []
     for _ in range(levels):
-        bands = dwt_fwd_2d(ll, mode=mode, scheme=scheme)
+        bands = dwt_fwd_2d(ll, mode=mode, scheme=scheme, checked=False)
         ll = bands.ll
         details.append((bands.lh, bands.hl, bands.hh))
     return Pyramid2D(ll=ll, details=tuple(reversed(details)))
 
 
-def dwt_inv_2d_multi(pyr: Pyramid2D, mode: str = "paper", scheme="cdf53") -> Tensor:
+def dwt_inv_2d_multi(
+    pyr: Pyramid2D, mode: str = "paper", scheme="cdf53", checked=None
+) -> Tensor:
     """Inverse of :func:`dwt_fwd_2d_multi`."""
+    if _ranges.checked_enabled(checked):
+        return _ranges.run_checked_inv(
+            lambda p: dwt_inv_2d_multi(p, mode=mode, scheme=scheme, checked=False),
+            pyr, scheme=scheme, levels=pyr.levels, mode=mode, ndim=2,
+            label="lifting.dwt_inv_2d_multi",
+        )
     ll = promote_narrow(pyr.ll)
     for lh, hl, hh in pyr.details:  # coarsest first
-        ll = dwt_inv_2d(Bands2D(ll=ll, lh=lh, hl=hl, hh=hh), mode=mode, scheme=scheme)
+        ll = dwt_inv_2d(Bands2D(ll=ll, lh=lh, hl=hl, hh=hh), mode=mode, scheme=scheme,
+                        checked=False)
     return ll
+
+
+def dwt53_fwd_2d(x: Tensor, mode: str = "paper", checked=None) -> Bands2D:
+    return dwt_fwd_2d(x, mode=mode, scheme="cdf53", checked=checked)
+
+
+def dwt53_inv_2d(bands: Bands2D, mode: str = "paper", checked=None) -> Tensor:
+    return dwt_inv_2d(bands, mode=mode, scheme="cdf53", checked=checked)
+
+
+def dwt53_fwd_2d_multi(
+    x: Tensor, levels: int = 1, mode: str = "paper", checked=None
+) -> Pyramid2D:
+    return dwt_fwd_2d_multi(x, levels=levels, mode=mode, scheme="cdf53", checked=checked)
+
+
+def dwt53_inv_2d_multi(pyr: Pyramid2D, mode: str = "paper", checked=None) -> Tensor:
+    return dwt_inv_2d_multi(pyr, mode=mode, scheme="cdf53", checked=checked)
 
 
 # ---------------------------------------------------------------------------

@@ -54,6 +54,10 @@ from repro_torch.kernels.backend import (  # noqa: F401
     resolve_device,
 )
 from repro_torch.kernels.fused2d import (  # noqa: F401
+    dwt53_fwd_2d,
+    dwt53_fwd_2d_multi,
+    dwt53_inv_2d,
+    dwt53_inv_2d_multi,
     dwt_fwd_2d,
     dwt_fwd_2d_multi,
     dwt_inv_2d,
@@ -119,6 +123,10 @@ __all__ = [
     "dwt53_fwd_1d",
     "dwt53_inv",
     "dwt53_inv_1d",
+    "dwt53_fwd_2d",
+    "dwt53_fwd_2d_multi",
+    "dwt53_inv_2d",
+    "dwt53_inv_2d_multi",
     "dwt_fwd",
     "dwt_fwd_1d",
     "dwt_inv",

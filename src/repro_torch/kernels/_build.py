@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -71,8 +72,8 @@ _SIGNATURES = {
         "repro_whole3d_inv": [_I] + [_P] * 16 + [_I] * 9 + [_P, _I, _P],
     },
     "slab3d": {
-        "repro_slab3d_fwd": [_I] + [_P] * 16 + [_I] * 10 + [_P, _I, _P],
-        "repro_slab3d_inv": [_I] + [_P] * 16 + [_I] * 10 + [_P, _I, _P],
+        "repro_slab3d_fwd": [_I] + [_P] * 16 + [_I] * 11 + [_P, _I, _P],
+        "repro_slab3d_inv": [_I] + [_P] * 16 + [_I] * 11 + [_P, _I, _P],
     },
 }
 
@@ -204,7 +205,8 @@ def launch(
 ) -> None:
     """Call one exported launcher of ``csrc/<name>.cu`` on the current
     stream of ``device``: ``fn(device, *tensor pointers, *ints, [table,
-    len(table),] stream)`` — the scheme table only where one is given.
+    len(table),] stream)`` — the scheme table only where one is given; a
+    pointer argument may be a tensor, None or a device address (int).
     Raises on a nonzero CUDA error code."""
     lib = library(name)
     extra = () if table is None else (table.ctypes.data_as(ctypes.c_void_p), len(table))
@@ -244,15 +246,24 @@ def check_tensors(
 
 
 def _ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+    """A tensor's data pointer; an int is taken as a device address."""
+    if t is None or isinstance(t, int):
+        return ctypes.c_void_p(t or 0)
+    return ctypes.c_void_p(t.data_ptr())
 
 
 def cascade_table(scheme, mode: str, inverse: bool) -> np.ndarray:
     """The resolved steps of ``scheme`` as the kernels' int32 table (see
     ``csrc/lift2d.cuh`` parse_cascade): execution order, the inverse's
     reversed order and flipped signs applied, each weight as its NAF
-    digits (a negative weight negates its digits)."""
-    steps = S.resolved_steps(scheme, mode)
+    digits (a negative weight negates its digits).  Read-only, built once
+    per scheme, mode and direction."""
+    return _cascade_table(S.get_scheme(scheme), mode, inverse)
+
+
+@functools.lru_cache(maxsize=64)
+def _cascade_table(sch, mode: str, inverse: bool) -> np.ndarray:
+    steps = S.resolved_steps(sch, mode)
     out = [len(steps)]
     for st in reversed(steps) if inverse else steps:
         sign = -st.sign if inverse else st.sign
@@ -262,4 +273,6 @@ def cascade_table(scheme, mode: str, inverse: bool) -> np.ndarray:
             out += [off, len(terms)]
             for t in terms:
                 out += [abs(t).bit_length() - 1, int((t < 0) != (w < 0))]
-    return np.asarray(out, np.int32)
+    table = np.asarray(out, np.int32)
+    table.flags.writeable = False
+    return table

@@ -67,20 +67,29 @@ def on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
+_CARD_BUDGETS: Dict[int, Dict[str, int]] = {}
+
+
 def budgets(device: Optional[torch.device] = None) -> Dict[str, int]:
     """Shared memory per block (opt-in) and per SM, and the SM count, of
-    the CUDA ``device``; the H100's figures for the CPU."""
+    the CUDA ``device`` (read once per card); the H100's figures for the
+    CPU."""
     if device is not None and torch.device(device).type == "cuda":
-        props = torch.cuda.get_device_properties(torch.device(device))
-        per_sm = int(props.shared_memory_per_multiprocessor)
-        # older torch builds lack the opt-in figure; CUDA reserves 1 KB of
-        # each SM's shared memory per block, which is what it amounts to
-        per_block = getattr(props, "shared_memory_per_block_optin", per_sm - 1024)
-        return {
-            "smem_per_block": int(per_block),
-            "smem_per_sm": per_sm,
-            "sms": int(props.multi_processor_count),
-        }
+        dev = torch.device(device)
+        index = dev.index if dev.index is not None else torch.cuda.current_device()
+        if index not in _CARD_BUDGETS:
+            props = torch.cuda.get_device_properties(index)
+            per_sm = int(props.shared_memory_per_multiprocessor)
+            # older torch builds lack the opt-in figure; CUDA reserves 1 KB
+            # of each SM's shared memory per block, which is what it
+            # amounts to
+            per_block = getattr(props, "shared_memory_per_block_optin", per_sm - 1024)
+            _CARD_BUDGETS[index] = {
+                "smem_per_block": int(per_block),
+                "smem_per_sm": per_sm,
+                "sms": int(props.multi_processor_count),
+            }
+        return dict(_CARD_BUDGETS[index])
     return {
         "smem_per_block": H100_SMEM_PER_BLOCK,
         "smem_per_sm": H100_SMEM_PER_SM,
@@ -182,6 +191,61 @@ def strip_width(n: int, device: Optional[torch.device] = None) -> int:
     while cw > 1 and n * cw * 4 > limit:
         cw //= 2
     return 0 if n * cw * 4 > limit else cw
+
+
+# ---------------------------------------------------------------------------
+# Plane-pass geometry of the depth-slab 3-D level (csrc/slab3d.cu).
+# ---------------------------------------------------------------------------
+
+# a plane-pass window takes at most a third of the SM's shared memory
+# (less the 1 KB the card reserves per block), so three 512-thread blocks
+# are resident: one block's loads overlap another's lifting (measured on
+# the H100: 10-15% faster than two blocks of taller strips, PERF.md)
+_PLANE_BLOCKS_PER_SM = 3
+_SMEM_RESERVED_PER_BLOCK = 1024
+_PLANE_MIN_ROWS = 8  # fewer core rows than this re-read too much halo
+
+
+def plane_rows(h: int, w: int, margin: int, windows: bool,
+               device: Optional[torch.device] = None) -> int:
+    """Core rows R of one block of the fused plane pass of a depth-slab
+    level over (h, w) slices, for a scheme with lifting margin ``margin``
+    (forward: ``fwd_margin``; inverse: ``inv_margin``) that windows along
+    h (``windows``: ``scheme.can_window(h)``).
+
+    The largest even R whose window of ``R + 4*margin`` whole int32 rows
+    fits a third of an SM's shared memory, never more than h (odd rounds
+    up).
+    0 when the plane pass does not apply: the scheme cannot window h, or
+    fewer than 8 rows (or h, when that is smaller) fit.  The level then
+    runs the row pass along W and the column pass along H instead.
+    """
+    if not windows:
+        return 0
+    b = budgets(device)
+    share = min(b["smem_per_sm"] // _PLANE_BLOCKS_PER_SM - _SMEM_RESERVED_PER_BLOCK,
+                b["smem_per_block"])
+    r = share // (4 * w) - 4 * margin
+    r -= r % 2
+    full = h + h % 2
+    return min(r, full) if r >= min(_PLANE_MIN_ROWS, full) else 0
+
+
+SLAB_STRIP = 128  # widest depth-pass strip: 32 lanes of 16-byte copies
+
+
+def slab_strip(depth: int, device: Optional[torch.device] = None) -> int:
+    """Columns per block of the depth pass whose windows are ``depth``
+    samples deep: 128, halved (down to 32) until the window fits a
+    quarter of an SM's shared memory, then until it fits one block's; 0
+    when even one column does not fit."""
+    b = budgets(device)
+    cw = SLAB_STRIP
+    while cw > STRIP and depth * cw * 4 > b["smem_per_sm"] // _SLAB_BLOCKS_PER_SM:
+        cw //= 2
+    while cw > 1 and depth * cw * 4 > b["smem_per_block"]:
+        cw //= 2
+    return 0 if depth * cw * 4 > b["smem_per_block"] else cw
 
 
 def col_scratch(nb: int, n: int, widths, cw: int) -> int:

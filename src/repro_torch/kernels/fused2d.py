@@ -49,13 +49,14 @@ Tensor = torch.Tensor
 def _fwd2d_math(x: Tensor, mode: str, scheme="cdf53"):
     """One reference 2-D level (``core.lifting.dwt_fwd_2d``) as a tuple —
     the plain version of the whole-image forward kernel."""
-    b = _lift.dwt_fwd_2d(x, mode=mode, scheme=scheme)
+    b = _lift.dwt_fwd_2d(x, mode=mode, scheme=scheme, checked=False)
     return b.ll, b.lh, b.hl, b.hh
 
 
 def _inv2d_math(ll: Tensor, lh: Tensor, hl: Tensor, hh: Tensor, mode: str, scheme="cdf53"):
     """The plain version of the whole-image inverse kernel."""
-    return _lift.dwt_inv_2d(Bands2D(ll=ll, lh=lh, hl=hl, hh=hh), mode=mode, scheme=scheme)
+    return _lift.dwt_inv_2d(Bands2D(ll=ll, lh=lh, hl=hl, hh=hh), mode=mode, scheme=scheme,
+                           checked=False)
 
 
 # ---------------------------------------------------------------------------
@@ -297,3 +298,26 @@ def dwt_inv_2d_multi(
     for lh, hl, hh in pyr.details:  # coarsest first
         x = _inv2d_level(x, _flat(lh, lead), _flat(hl, lead), _flat(hh, lead), sch, mode)
     return x.reshape(lead + tuple(x.shape[1:]))
+
+
+# ---------------------------------------------------------------------------
+# (5,3) aliases, as in the reference; ``checked=`` passes through.
+# ---------------------------------------------------------------------------
+
+
+def dwt53_fwd_2d(x: Tensor, mode: str = "paper", checked=None) -> Bands2D:
+    return dwt_fwd_2d(x, mode=mode, scheme="cdf53", checked=checked)
+
+
+def dwt53_inv_2d(bands: Bands2D, mode: str = "paper", checked=None) -> Tensor:
+    return dwt_inv_2d(bands, mode=mode, scheme="cdf53", checked=checked)
+
+
+def dwt53_fwd_2d_multi(
+    x: Tensor, levels: int = 1, mode: str = "paper", checked=None
+) -> Pyramid2D:
+    return dwt_fwd_2d_multi(x, levels=levels, mode=mode, scheme="cdf53", checked=checked)
+
+
+def dwt53_inv_2d_multi(pyr: Pyramid2D, mode: str = "paper", checked=None) -> Tensor:
+    return dwt_inv_2d_multi(pyr, mode=mode, scheme="cdf53", checked=checked)

@@ -11,10 +11,13 @@ every shape with all transform axes >= 2:
     (B, D, H, W) int32 batch, each level on one of two engines chosen from
     the static shape (:func:`plan_3d`):
 
-      - **slab** (``csrc/slab3d.cu``): the plane axes W and H with
-        band-policy math, then the depth axis in windows of TD + 2*halo
-        slices that the kernel reflects itself.  Taken where the scheme
-        windows along the depth (``scheme.can_window(D)``) and the volume
+      - **slab** (``csrc/slab3d.cu``): the plane axes W and H (band-policy
+        math along W, windows along H), then the depth axis in windows of
+        TD + 2*halo slices that the kernel reflects itself; two passes
+        through device memory per level where the scheme windows along H
+        and a strip of whole rows fits a block, else three
+        (:func:`slab_geometry`).  Taken where the scheme windows along
+        the depth (``scheme.can_window(D)``) and the volume
         is larger than one block's shared memory
         (``backend.whole3d_budget_elems``), or for every such volume when
         ``REPRO_DWT_SLAB`` is set.
@@ -35,6 +38,7 @@ level launches a kernel or raises.  Every public function takes
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -215,11 +219,62 @@ def _intermediates(ref: Tensor, b: int, d: int, h: int, w: int):
     return sw, dw, t
 
 
-def _slab_strip(td: int, margin: int, device) -> int:
-    cw = _backend.strip_width(td + 4 * margin, device)
-    if not cw:
+def slab_geometry(
+    b: int, d: int, h: int, w: int, td: int, scheme="cdf53", inverse: bool = False,
+    device: Optional[torch.device] = None,
+) -> Dict[str, int]:
+    """Launch geometry of one depth-slab level (``csrc/slab3d.cu``) of a
+    (b, d, h, w) batch with slab depth ``td``: the margin ``m`` of the
+    direction; ``plane_rows`` R of the fused plane pass (0 where it does
+    not apply, :func:`backend.plane_rows`), and then ``passes`` 2;
+    otherwise ``passes`` 3 and the row and column passes' ``rb`` /
+    ``row_global`` / ``cw_h`` / ``scratch``, as :func:`volume_geometry`
+    sizes them; and the depth pass's strip ``cw_s``."""
+    dev = None if device is None else torch.device(device)
+    return dict(_slab_geometry(b, d, h, w, td, S.get_scheme(scheme), inverse, dev))
+
+
+@functools.lru_cache(maxsize=256)
+def _slab_geometry(b, d, h, w, td, sch, inverse, device) -> Dict[str, int]:
+    m = sch.inv_margin if inverse else sch.fwd_margin
+    cw_s = _backend.slab_strip(td + 4 * m, device)
+    if not cw_s:
         raise ValueError(f"slab depth {td} is too deep for one block's shared memory")
-    return cw
+    rows = _backend.plane_rows(h, w, m, sch.can_window(h), device)
+    g = {"m": m, "plane_rows": rows, "passes": 2 if rows else 3, "cw_s": cw_s,
+         "rb": 1, "row_global": 0, "cw_h": 0, "scratch": 0}
+    if not rows:
+        rs, cw_h = _backend.row_geometry(b * d * h, w, device), _backend.strip_width(h, device)
+        g.update(rb=rs["rb"], row_global=rs["row_global"], cw_h=cw_h,
+                 scratch=max(rs["scratch"],
+                             _backend.col_scratch(b * d, h, (w - w // 2, w // 2), cw_h)))
+    return g
+
+
+def _slab_args(g: Dict[str, int], bsz: int, d: int, h: int, w: int, td: int) -> Tuple[int, ...]:
+    return (bsz, d, h, w, td, g["m"], g["rb"], g["row_global"], g["cw_h"], g["cw_s"],
+            g["plane_rows"])
+
+
+def _slab_buffers(ref: Tensor, g: Dict[str, int], b: int, d: int, h: int, w: int):
+    """Device scratch of one slab level: the four planes t0..t3 between
+    the plane axes and the depth axis, as addresses in one allocation
+    (each on a 16-byte boundary, which the kernels' vector copies need;
+    one allocator call instead of four), and the row bands and scratch
+    of the row and column passes where they run (None otherwise).  The
+    allocation is returned too, to be held until the launch is queued."""
+    he, ho, we, wo = h - h // 2, h // 2, w - w // 2, w // 2
+    sizes = [b * d * hh * ww for hh, ww in ((he, we), (he, wo), (ho, we), (ho, wo))]
+    offsets = [0]
+    for n in sizes[:-1]:
+        offsets.append(offsets[-1] + _cdiv(n, 4) * 4)
+    planes = ref.new_empty((offsets[-1] + sizes[-1],))
+    t = [planes.data_ptr() + 4 * o for o in offsets]
+    sw = dw = None
+    if not g["plane_rows"]:
+        sw, dw = ref.new_empty((b * d * h, we)), ref.new_empty((b * d * h, wo))
+    scratch = ref.new_empty((g["scratch"],)) if g["scratch"] else None
+    return planes, sw, dw, t, scratch
 
 
 def fwd3d_whole_cuda(x: Tensor, mode: str, scheme="cdf53") -> Tuple[Tensor, ...]:
@@ -266,29 +321,28 @@ def inv3d_whole_cuda(bands: Sequence[Tensor], mode: str, scheme="cdf53") -> Tens
 
 def fwd3d_slab_cuda(x: Tensor, mode: str, td: int, scheme="cdf53") -> Tuple[Tensor, ...]:
     """Launch ``csrc/slab3d.cu`` forward on a (B, D, H, W) int32 CUDA batch
-    with slab depth ``td``.  Replaces ``repro.kernels.fused3d.fwd3d_slab``
-    (``_fwd_slab_kernel``)."""
+    with slab depth ``td``: the plane pass and the depth pass, or the row,
+    column and depth passes (:func:`slab_geometry`).  Replaces
+    ``repro.kernels.fused3d.fwd3d_slab`` (``_fwd_slab_kernel``)."""
     sch = S.get_scheme(scheme)
     _check_slab(td)
     check_volume(x)
     dev = _build.check_tensors("fwd3d_slab", [x])
     bsz, d, h, w = x.shape
     bands = [x.new_empty((bsz,) + dim) for dim in _band_dims_3d(d, h, w)]
-    g = volume_geometry(bsz, d, h, w, x.device)
-    sw, dw, t = _intermediates(x, bsz, d, h, w)
-    scratch = x.new_empty((g["scratch"],)) if g["scratch"] else None
-    m = sch.fwd_margin
+    g = slab_geometry(bsz, d, h, w, td, sch, inverse=False, device=x.device)
+    _planes, sw, dw, t, scratch = _slab_buffers(x, g, bsz, d, h, w)
     _build.launch(
         "slab3d", "repro_slab3d_fwd", dev, [x, sw, dw, *t, *bands, scratch],
-        (bsz, d, h, w, td, m, g["rb"], g["row_global"], g["cw_h"], _slab_strip(td, m, x.device)),
-        _build.cascade_table(sch, mode, inverse=False),
+        _slab_args(g, bsz, d, h, w, td), _build.cascade_table(sch, mode, inverse=False),
     )
     _backend.launches.bump("slab3d_fwd")
     return tuple(bands)
 
 
 def inv3d_slab_cuda(bands: Sequence[Tensor], mode: str, td: int, scheme="cdf53") -> Tensor:
-    """Launch ``csrc/slab3d.cu`` inverse on eight (B, ...) int32 CUDA bands.
+    """Launch ``csrc/slab3d.cu`` inverse on eight (B, ...) int32 CUDA bands:
+    the depth pass, then the plane pass or the column and row passes.
     Replaces ``repro.kernels.fused3d.inv3d_slab`` (``_inv_slab_kernel``)."""
     sch = S.get_scheme(scheme)
     _check_slab(td)
@@ -296,14 +350,11 @@ def inv3d_slab_cuda(bands: Sequence[Tensor], mode: str, td: int, scheme="cdf53")
     bsz, d, h, w = band_dims(bands)
     ref = bands[0]
     x = ref.new_empty((bsz, d, h, w))
-    g = volume_geometry(bsz, d, h, w, ref.device)
-    sw, dw, t = _intermediates(ref, bsz, d, h, w)
-    scratch = ref.new_empty((g["scratch"],)) if g["scratch"] else None
-    m = sch.inv_margin
+    g = slab_geometry(bsz, d, h, w, td, sch, inverse=True, device=ref.device)
+    _planes, sw, dw, t, scratch = _slab_buffers(ref, g, bsz, d, h, w)
     _build.launch(
         "slab3d", "repro_slab3d_inv", dev, [*bands, *t, sw, dw, x, scratch],
-        (bsz, d, h, w, td, m, g["rb"], g["row_global"], g["cw_h"], _slab_strip(td, m, ref.device)),
-        _build.cascade_table(sch, mode, inverse=True),
+        _slab_args(g, bsz, d, h, w, td), _build.cascade_table(sch, mode, inverse=True),
     )
     _backend.launches.bump("slab3d_inv")
     return x

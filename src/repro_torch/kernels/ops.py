@@ -229,17 +229,17 @@ def dwt_inv(pyr: WaveletPyramid, mode: str = "paper", scheme="cdf53", checked=No
 # ---------------------------------------------------------------------------
 
 
-def dwt53_fwd_1d(x: Tensor, mode: str = "paper") -> Tuple[Tensor, Tensor]:
-    return dwt_fwd_1d(x, mode=mode, scheme="cdf53")
+def dwt53_fwd_1d(x: Tensor, mode: str = "paper", checked=None) -> Tuple[Tensor, Tensor]:
+    return dwt_fwd_1d(x, mode=mode, scheme="cdf53", checked=checked)
 
 
-def dwt53_inv_1d(s: Tensor, d: Tensor, mode: str = "paper") -> Tensor:
-    return dwt_inv_1d(s, d, mode=mode, scheme="cdf53")
+def dwt53_inv_1d(s: Tensor, d: Tensor, mode: str = "paper", checked=None) -> Tensor:
+    return dwt_inv_1d(s, d, mode=mode, scheme="cdf53", checked=checked)
 
 
-def dwt53_fwd(x: Tensor, levels: int = 1, mode: str = "paper") -> WaveletPyramid:
-    return dwt_fwd(x, levels=levels, mode=mode, scheme="cdf53")
+def dwt53_fwd(x: Tensor, levels: int = 1, mode: str = "paper", checked=None) -> WaveletPyramid:
+    return dwt_fwd(x, levels=levels, mode=mode, scheme="cdf53", checked=checked)
 
 
-def dwt53_inv(pyr: WaveletPyramid, mode: str = "paper") -> Tensor:
-    return dwt_inv(pyr, mode=mode, scheme="cdf53")
+def dwt53_inv(pyr: WaveletPyramid, mode: str = "paper", checked=None) -> Tensor:
+    return dwt_inv(pyr, mode=mode, scheme="cdf53", checked=checked)

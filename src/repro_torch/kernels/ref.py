@@ -11,8 +11,12 @@ from repro_torch.core.lifting import (  # noqa: F401
     WaveletPyramid,
     dwt53_fwd,
     dwt53_fwd_1d,
+    dwt53_fwd_2d,
+    dwt53_fwd_2d_multi,
     dwt53_inv,
     dwt53_inv_1d,
+    dwt53_inv_2d,
+    dwt53_inv_2d_multi,
     dwt_fwd,
     dwt_fwd_1d,
     dwt_fwd_2d,

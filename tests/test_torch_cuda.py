@@ -263,6 +263,38 @@ def test_cuda_3d_kernels_match_plain_versions(name, mode, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", SCHEMES)
+def test_cuda_slab_plane_pass_branches_match_plain_versions(name, cuda_device):
+    """The depth-slab kernels on the shapes that force each branch of the
+    plane pass: windows taller than the slice (H of 2, 3, 5), odd H and W
+    (4-byte copies), W % 8 == 0 (16-byte copies), several strips of rows
+    with a ragged last one, and the row and column passes (haar at odd H,
+    rows too wide for a block); slab depths 2, 4 and the picked one."""
+    from repro_torch.kernels import backend as TB
+    from repro_torch.kernels import fused3d as T3
+
+    rng = np.random.default_rng(23)
+    sch = TS.get_scheme(name)
+    shapes = [(4, 2, 16), (6, 3, 8), (5, 5, 24), (7, 13, 40), (4, 20, 9), (8, 9, 16),
+              (3, 101, 1000), (3, 77, 1001), (2, 5, 60001)]
+    seen = set()
+    for shp in shapes:
+        if not sch.can_window(shp[0]):
+            continue
+        xt = torch.from_numpy(_img(rng, (2,) + shp)).to(cuda_device)
+        for td in {2, 4, TB.pick_slab(*shp, sch.halo, cuda_device)}:
+            # the plain version crops the slab bands along depth: views
+            want = [b.contiguous() for b in T3.fwd3d_slab_plain(xt, "jpeg2000", td, name)]
+            for a, b in zip(T3.fwd3d_slab_cuda(xt, "jpeg2000", td, name), want):
+                assert torch.equal(a, b), (shp, td)
+            assert torch.equal(T3.inv3d_slab_cuda(want, "jpeg2000", td, name),
+                               T3.inv3d_slab_plain(want, "jpeg2000", td, name)), (shp, td)
+            seen.add(T3.slab_geometry(2, *shp, td, name, False, cuda_device)["passes"])
+    torch.cuda.synchronize(cuda_device)
+    assert seen == (set() if name == "cdf22" else {2, 3})
+
+
+@pytest.mark.cuda
 def test_cuda_3d_library_serve_and_codec_paths(cuda_device):
     from repro_torch.codec import stream as TSTREAM
 

@@ -343,3 +343,42 @@ def test_pick_blocks_from_the_card_budget():
         assert rb * (2 * bp + 2 * halo) * 4 <= TB.H100_SMEM_PER_SM // 8
     with pytest.raises(RuntimeError, match="is_available"):
         TK.plan_1d(64)  # the default device is the card
+
+
+@pytest.mark.parametrize("name", ["dwt53_fwd_1d", "dwt53_inv_1d", "dwt53_fwd", "dwt53_inv"])
+def test_dwt53_1d_aliases_pass_checked_through(name, monkeypatch):
+    """int32 extremes: each (5,3) alias raises the typed overflow error
+    under ``checked=True`` in the port's kernels and oracle, as the
+    reference's oracle does under ``REPRO_DWT_CHECKED=1``; unchecked,
+    all three return the same wrapped bands."""
+    from repro.resilience.errors import IntegerOverflowError as RefOverflow
+    from repro_torch.resilience.errors import IntegerOverflowError
+
+    x = np.full((2, 24), I32.max, np.int32)
+    x[:, ::3] = I32.min
+
+    def args(mod, conv):
+        if name in ("dwt53_fwd_1d", "dwt53_fwd"):
+            return (conv(x),)
+        if name == "dwt53_inv_1d":
+            return tuple(conv(a) for a in (x[:, :12], x[:, 12:]))
+        return (mod.WaveletPyramid(approx=conv(x[:, :12]), details=(conv(x[:, 12:]),)),)
+
+    t_args = args(TL, torch.from_numpy)
+    for mod in (TK, TL):
+        with pytest.raises(IntegerOverflowError):
+            getattr(mod, name)(*t_args, checked=True)
+    r_args = args(RL, jnp.asarray)
+    monkeypatch.setenv("REPRO_DWT_CHECKED", "1")
+    with pytest.raises(RefOverflow):
+        getattr(RL, name)(*r_args)
+    monkeypatch.delenv("REPRO_DWT_CHECKED")
+    want = getattr(RL, name)(*r_args)
+    for mod in (TK, TL):
+        got = getattr(mod, name)(*t_args, checked=False)
+        got_leaves = [got] if isinstance(got, torch.Tensor) else \
+            [got.approx, *got.details] if hasattr(got, "approx") else list(got)
+        want_leaves = [want] if not isinstance(want, tuple) else \
+            [want.approx, *want.details] if hasattr(want, "approx") else list(want)
+        for a, b in zip(got_leaves, want_leaves, strict=True):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))

@@ -316,6 +316,59 @@ def test_volume_geometry_one_block_or_three_passes():
     assert g["row_global"] == 1 and g["scratch"] >= 4 * 60001
 
 
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize(
+    "name,dhw,passes",
+    [
+        ("cdf53", (64, 512, 512), 2),  # the main path: the fused plane pass
+        ("97m", (64, 512, 512), 2),
+        ("cdf53", (32, 256, 256), 2),
+        ("97m", (5, 3, 7), 2),  # a window taller than the slice reflects
+        ("cdf53", (2, 2, 2), 2),
+        ("haar", (64, 512, 512), 2),
+        ("haar", (8, 9, 16), 3),  # haar cannot window an odd H
+        ("cdf53", (3, 5, 60001), 3),  # rows too wide for one block's window
+        ("97m", (3, 5, 60001), 3),
+    ],
+)
+def test_slab_level_is_two_passes_where_the_plane_pass_applies(name, dhw, passes, inverse):
+    """The plane-pass choice comes from the shape and the H100's figures
+    alone, so the CPU sees the card's choice: R rows whose R + 4m window
+    fits a third of an SM, never past H; otherwise the row and column
+    passes."""
+    sch = TS.get_scheme(name)
+    d, h, w = dhw
+    td = TB.pick_slab(d, h, w, sch.halo)
+    g = T3.slab_geometry(4, d, h, w, td, name, inverse)
+    m = sch.inv_margin if inverse else sch.fwd_margin
+    assert g["m"] == m and g["passes"] == passes
+    rows = g["plane_rows"]
+    assert (rows > 0) == (passes == 2)
+    if rows:
+        assert rows % 2 == 0 and rows <= h + h % 2
+        assert (rows + 4 * m) * w * 4 <= 233472 // 3 - 1024
+        assert rows == h + h % 2 or (rows + 2 + 4 * m) * w * 4 > 233472 // 3 - 1024
+        assert g["scratch"] == 0
+    else:
+        assert g["rb"] >= 1 and g["cw_h"] >= 0
+    assert g["cw_s"] in (32, 64, 128) and (td + 4 * m) * g["cw_s"] * 4 <= 233472 // 4
+    if dhw == (64, 512, 512) and name != "haar":
+        assert rows >= 28  # the halo re-read stays under 30% of the plane pass
+    if dhw == (3, 5, 60001):
+        assert g["row_global"] == 1 and g["scratch"] >= 4 * 5 * 3 * 60001
+
+
+def test_plane_rows_and_slab_strip_budgets():
+    assert TB.plane_rows(512, 512, 1, True) == 32
+    assert TB.plane_rows(512, 512, 2, True) == 28
+    assert TB.plane_rows(512, 512, 1, False) == 0  # the scheme cannot window H
+    assert TB.plane_rows(9, 16, 0, True) == 10  # never past H (odd rounds up)
+    assert TB.plane_rows(64, 2000, 1, True) == 0  # fewer than 8 rows fit
+    assert TB.plane_rows(4, 2000, 1, True) == 4  # ... unless H itself is shorter
+    assert TB.slab_strip(68) == 128 and TB.slab_strip(460) == 32
+    assert TB.slab_strip(2000) == 16 and TB.slab_strip(60000) == 0
+
+
 def test_plan_3d_default_device_is_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present")

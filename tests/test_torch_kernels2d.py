@@ -349,3 +349,26 @@ def test_launch_raises_on_a_cuda_error_code(monkeypatch):
     with pytest.raises(_build.KernelLaunchError, match="invalid configuration"):
         _build.launch("tiled2d", "repro_tiled_fwd", 0, [None], [1], np.zeros(1, np.int32))
     assert ctypes.sizeof(ctypes.c_void_p) == 8
+
+
+@pytest.mark.parametrize("where", ["repro_torch.kernels", "repro_torch.kernels.fused2d",
+                                   "repro_torch.kernels.ref", "repro_torch.core.lifting"])
+def test_dwt53_2d_aliases_equal_the_reference(where):
+    """The four (5,3) 2-D aliases of the reference exist in every module
+    that has them there, are bit-equal to it and pass ``checked=``
+    through."""
+    import importlib
+
+    mod = importlib.import_module(where)
+    x = _img((2, 13, 10))
+    for mode in MODES:
+        want = RL.dwt53_fwd_2d(jnp.asarray(x), mode=mode)
+        got = mod.dwt53_fwd_2d(torch.from_numpy(x), mode=mode)
+        for a, b in zip(got, want, strict=True):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        np.testing.assert_array_equal(mod.dwt53_inv_2d(got, mode=mode, checked=True).numpy(), x)
+        wp = RL.dwt53_fwd_2d_multi(jnp.asarray(x), levels=2, mode=mode)
+        gp = mod.dwt53_fwd_2d_multi(torch.from_numpy(x), levels=2, mode=mode, checked=True)
+        _assert_pyr_equal(gp, wp)
+        np.testing.assert_array_equal(mod.dwt53_inv_2d_multi(gp, mode=mode).numpy(),
+                                      np.asarray(RL.dwt53_inv_2d_multi(wp, mode=mode)))

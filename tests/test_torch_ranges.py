@@ -273,3 +273,115 @@ def test_port_only_rules():
         TK.dwt_fwd(torch.full((1, 32), int(I32.max), dtype=torch.int32), levels=1, checked=True)
     u16 = torch.from_numpy(np.array([[0, 65535] * 8], np.uint16))
     assert TR._data_interval([u16]) == (0, 65535)
+
+
+# ---------------------------------------------------------------------------
+# Checked mode on the oracles (core.lifting): the reference's outcome,
+# by keyword and by the env toggle.
+# ---------------------------------------------------------------------------
+
+
+def _oracle_calls(name, x, mode, kw):
+    """(reference call, port call) of oracle ``name`` on the numpy input
+    ``x``; an inverse is fed the bands of the unchecked forward."""
+    sch = dict(scheme="97m", mode=mode, **kw)
+    j, t = jnp.asarray(x), torch.from_numpy(x)
+    if name in ("dwt_fwd_1d", "dwt_fwd_2d"):
+        return (lambda: getattr(RL, name)(j, **sch)), (lambda: getattr(TL, name)(t, **sch))
+    if name in ("dwt_fwd", "dwt_fwd_2d_multi"):
+        return (lambda: getattr(RL, name)(j, levels=2, **sch)), \
+            (lambda: getattr(TL, name)(t, levels=2, **sch))
+    if name == "dwt_inv_1d":
+        s, d = TL.dwt_fwd_1d(t, scheme="97m", mode=mode, checked=False)
+        return (lambda: RL.dwt_inv_1d(jnp.asarray(s.numpy()), jnp.asarray(d.numpy()), **sch)), \
+            (lambda: TL.dwt_inv_1d(s, d, **sch))
+    if name == "dwt_inv_2d":
+        b = TL.dwt_fwd_2d(t, scheme="97m", mode=mode, checked=False)
+        rb = RL.Bands2D(*(jnp.asarray(a.numpy()) for a in b))
+        return (lambda: RL.dwt_inv_2d(rb, **sch)), (lambda: TL.dwt_inv_2d(b, **sch))
+    if name == "dwt_inv":
+        p = TL.dwt_fwd(t, levels=2, scheme="97m", mode=mode, checked=False)
+        rp = RL.WaveletPyramid(approx=jnp.asarray(p.approx.numpy()),
+                               details=tuple(jnp.asarray(d.numpy()) for d in p.details))
+        return (lambda: RL.dwt_inv(rp, **sch)), (lambda: TL.dwt_inv(p, **sch))
+    p = TL.dwt_fwd_2d_multi(t, levels=2, scheme="97m", mode=mode, checked=False)
+    rp = RL.Pyramid2D(ll=jnp.asarray(p.ll.numpy()),
+                      details=tuple(tuple(jnp.asarray(b.numpy()) for b in lvl)
+                                    for lvl in p.details))
+    return (lambda: RL.dwt_inv_2d_multi(rp, **sch)), (lambda: TL.dwt_inv_2d_multi(p, **sch))
+
+
+def _leaves_np(out):
+    if isinstance(out, (tuple, list)):
+        return [a for sub in out for a in _leaves_np(sub)]
+    return [np.asarray(out.numpy() if isinstance(out, torch.Tensor) else out)]
+
+
+ORACLES = ("dwt_fwd_1d", "dwt_inv_1d", "dwt_fwd", "dwt_inv",
+           "dwt_fwd_2d", "dwt_inv_2d", "dwt_fwd_2d_multi", "dwt_inv_2d_multi")
+
+
+@pytest.mark.parametrize("how", ["kwarg", "env"])
+@pytest.mark.parametrize("name", ORACLES)
+def test_checked_oracles_raise_what_the_reference_raises(name, how, monkeypatch):
+    """97m int32 extremes and their neighbours: the same exception class
+    (and label) as ``repro.core.lifting``, the same bands where neither
+    raises."""
+    mode = "jpeg2000"
+    ndim = 2 if "2d" in name else 1
+    shape = (1, 13, 10) if ndim == 2 else (2, 40)
+    kw = {"checked": True} if how == "kwarg" else {}
+    seen = set()
+    for m, x in _built_inputs("97m", mode, ndim, shape, seed=11 + ndim):
+        ref, port = _oracle_calls(name, x, mode, kw)
+        if how == "env":
+            monkeypatch.setenv("REPRO_DWT_CHECKED", "1")
+        try:
+            rw = _raised(ref)
+            tw = _raised(port)
+        finally:
+            monkeypatch.delenv("REPRO_DWT_CHECKED", raising=False)
+        assert (tw[0] is None) == (rw[0] is None), (m, rw, tw)
+        if rw[0] is None:
+            for a, b in zip(_leaves_np(tw[1]), _leaves_np(rw[1]), strict=True):
+                np.testing.assert_array_equal(a, b)
+        else:
+            assert issubclass(tw[0], IntegerOverflowError) and issubclass(rw[0], RefOverflow)
+            assert tw[1].split(":")[0] == rw[1].split(":")[0] == f"lifting.{name}"
+        seen.add(rw[0] is None)
+    assert seen == {True, False}
+
+
+def _raised(fn):
+    """(None, result) or (exception class, message)."""
+    try:
+        return None, fn()
+    except Exception as e:  # noqa: BLE001  the class itself is compared
+        return type(e), str(e)
+
+
+BY_DESIGN_ABSENT = {
+    # the dispatch convention: the tensor's device is the whole choice
+    "VALID_BACKENDS", "BackendDegradeWarning", "default_backend", "has_compiled_pallas",
+    "platform", "resolve", "resolve_backend", "use_backend",
+    # the sharded transform (ROADMAP Queue 1 item 8)
+    "dwt_fwd_2d_sharded", "dwt_inv_2d_sharded", "dwt53_fwd_2d_sharded",
+    "dwt53_inv_2d_sharded",
+    # the float filter bank (ROADMAP Queue 1 item 7)
+    "filterbank53_fwd_float",
+}
+
+
+@pytest.mark.parametrize("pkg", ["core", "kernels"])
+def test_port_exports_the_reference_surface(pkg):
+    import importlib
+
+    ref = importlib.import_module(f"repro.{pkg}")
+    port = importlib.import_module(f"repro_torch.{pkg}")
+    names = set(getattr(ref, "__all__", None) or
+                [n for n in vars(ref) if not n.startswith("_") and
+                 not isinstance(vars(ref)[n], type(importlib))])
+    missing = sorted(n for n in names - BY_DESIGN_ABSENT if not hasattr(port, n))
+    assert not missing
+    if hasattr(ref, "__all__"):
+        assert not sorted(n for n in names - BY_DESIGN_ABSENT if n not in port.__all__)
