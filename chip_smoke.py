@@ -12,7 +12,11 @@ Phases (any failure raises and the script exits nonzero):
 2. Hold each of the four 2-D kernels (whole-image forward / inverse,
    halo-tiled forward / inverse) against its plain PyTorch version on the
    card with ``torch.equal``: 4 schemes x 2 rounding modes, odd sizes,
-   multi-tile grids, int32 extremes, and lines too long for shared memory.
+   multi-tile grids, int32 extremes, and lines too long for shared memory;
+   the tiled kernels at forced (4, 6) and (64, 64) tiles and at the
+   default tile, on shapes of at least 3 x 3 default tiles ((2, 600, 520),
+   (2, 517, 389): interior tiles that reflect nothing) and on the full
+   8 x 2048^2 batch.
    Then hold the Rice encode and decode kernels against theirs: rows,
    ``k`` and bit counts with ``torch.equal``, payload bytes with ``==``,
    on adversarial bands (constant, all-escape int32 extremes, one value,
@@ -86,8 +90,9 @@ Phases (any failure raises and the script exits nonzero):
    cdf22 row pass at (a) and (c); the 4 levels of one 4 x (64, 512, 512)
    batch for the 3-D kernels, and the three-pass whole-volume path at its
    level 1 in cdf22), beside its plain version and its bound, comparing
-   outputs once more; for each slab level, which plane path ran and the
-   device ms of each kernel it launched (``torch.profiler``).
+   outputs once more; for each 2-D level its tile and the kernel's device
+   ms, for each slab level which plane path ran and the device ms of each
+   kernel it launched (``torch.profiler``).
 10. Print the ``{"kernels": [...]}`` line, the card line, and last the
    ``{"ok": true, ...}`` line.  ``--json-out PATH`` also writes the whole
    record (every batch latency, every level's, band's and shape's time)
@@ -171,13 +176,24 @@ def _equal_or_raise(label, got, want) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _tiled_check(label, xt, want, mode, th, tw, sch) -> None:
+    from repro_torch.kernels import tiled2d as T
+
+    lab = f"{label}/tile{th}x{tw}"
+    _equal_or_raise("tiled2d_fwd " + lab, T.fwd2d_tiled_cuda(xt, mode, th, tw, sch),
+                    T.fwd2d_tiled_plain(xt, mode, th, tw, sch))
+    _equal_or_raise("tiled2d_inv " + lab, [T.inv2d_tiled_cuda(*want, mode, th, tw, sch)],
+                    [T.inv2d_tiled_plain(*want, mode, th, tw, sch)])
+
+
 def parity_sweep(rng, dev) -> dict:
     from repro_torch.core import schemes as S
+    from repro_torch.kernels import backend as B
     from repro_torch.kernels import fused2d as F
-    from repro_torch.kernels import tiled2d as T
 
     shapes = [(2, 2), (3, 3), (7, 9), (33, 17), (257, 383), (512, 512)]
     counts = {k: 0 for k in KERNELS_2D}
+    counts.update(tiled2d_default_tile=0, tiled2d_interior_tiles=0)
     for sch in SCHEMES:
         sc = S.get_scheme(sch)
         for mode in MODES:
@@ -199,16 +215,37 @@ def parity_sweep(rng, dev) -> dict:
                 counts["whole2d_inv"] += 1
                 if not (sc.can_window(h) and sc.can_window(w)) or max(h, w) > 1000:
                     continue
-                for th, tw in ((4, 6), (64, 64)):
-                    lab = f"{label}/tile{th}x{tw}"
-                    _equal_or_raise("tiled2d_fwd " + lab,
-                                    T.fwd2d_tiled_cuda(xt, mode, th, tw, sch),
-                                    T.fwd2d_tiled_plain(xt, mode, th, tw, sch))
-                    _equal_or_raise("tiled2d_inv " + lab,
-                                    [T.inv2d_tiled_cuda(*want, mode, th, tw, sch)],
-                                    [T.inv2d_tiled_plain(*want, mode, th, tw, sch)])
+                default = B.pick_tile(h, w, sc.halo, dev)
+                for th, tw in sorted({(4, 6), (64, 64), default}):
+                    _tiled_check(label, xt, want, mode, th, tw, sch)
                     counts["tiled2d_fwd"] += 1
                     counts["tiled2d_inv"] += 1
+                    counts["tiled2d_default_tile"] += (th, tw) == default
+            # the tiled kernels alone at the default tile (and forced tiny
+            # tiles) on shapes of at least 3 x 3 tiles, whose interior tiles
+            # take no reflection, and on the serve path's full batch
+            big = [(2, 600, 520, "rand"), (2, 600, 520, "max"), (2, 517, 389, "rand"),
+                   (2, 517, 389, "min"), (SLOTS, 2048, 2048, "rand")]
+            for b, h, w, kind in big:
+                if not (sc.can_window(h) and sc.can_window(w)):
+                    continue
+                if kind == "rand":
+                    xt = torch.randint(-(1 << 20), 1 << 20, (b, h, w), dtype=torch.int32,
+                                       device=dev)
+                else:
+                    xt = torch.full((b, h, w), int(I32.min if kind == "min" else I32.max),
+                                    dtype=torch.int32, device=dev)
+                label = f"{sch}/{mode}/{b}x{h}x{w}/{kind}"
+                want = F._fwd2d_math(xt, mode, sch)
+                default = B.pick_tile(h, w, sc.halo, dev)
+                tiles = [default] + ([(4, 6)] if h < 2048 else [])
+                for th, tw in tiles:
+                    _tiled_check(label, xt, want, mode, th, tw, sch)
+                    counts["tiled2d_fwd"] += 1
+                    counts["tiled2d_inv"] += 1
+                    counts["tiled2d_default_tile"] += (th, tw) == default
+                counts["tiled2d_interior_tiles"] += 1
+                del xt, want
     torch.cuda.synchronize(dev)
     return counts
 
@@ -637,7 +674,9 @@ def time_kernels(rng, dev) -> list:
             e["ops"] += int(ops_per_sample * SLOTS * h * w)
             e["err"] = max(e["err"], err)
             e["levels"].append({"shape": [SLOTS, h, w], "ms": ms, "plain_ms": pms,
-                                "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3})
+                                "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+                                "tile": [th, tw] if tiled else None,
+                                "device_ms": _pass_ms(kern)})
     out = []
     for name in KERNELS_2D:
         source, replaces = KERNELS[name]
@@ -1674,8 +1713,11 @@ def main() -> int:
     for k in kernels:
         for lv in k.pop("levels"):
             if "ms" in lv:  # a 2-D kernel's level
+                tile = f", tile {lv['tile']}" if lv["tile"] else ""
+                dev_ms = ", ".join(f"{a} {b:.4f}" if isinstance(b, float) else f"{a} {b}"
+                                   for a, b in lv["device_ms"].items())
                 print(f"  {k['name']} {lv['shape']}: {lv['ms']:.4f} ms (plain {lv['plain_ms']:.3f}"
-                      f" ms, bound {lv['bound_ms']:.4f} ms)")
+                      f" ms, bound {lv['bound_ms']:.4f} ms{tile}; device: {dev_ms})")
             else:  # the Rice kernels: all bands of the batch at once
                 print(f"  {k['name']} {lv}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms,"
                       f" bound {k['bound_ms']:.4f} ms, {k['bound_by']})")

@@ -209,11 +209,9 @@ def launch(
     pointer argument may be a tensor, None or a device address (int).
     Raises on a nonzero CUDA error code."""
     lib = library(name)
-    extra = () if table is None else (table.ctypes.data_as(ctypes.c_void_p), len(table))
-    rc = getattr(lib, fn)(
-        device, *(_ptr(t) for t in tensors), *ints, *extra,
-        ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream),
-    )
+    extra = () if table is None else (table.ctypes.data, len(table))
+    rc = getattr(lib, fn)(device, *(_ptr(t) for t in tensors), *ints, *extra,
+                          current_stream_handle(device))
     if rc != 0:
         msg = lib.repro_error_string(rc).decode()
         raise KernelLaunchError(f"{fn}: CUDA error {rc} ({msg})")
@@ -245,11 +243,25 @@ def check_tensors(
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
-def _ptr(t) -> ctypes.c_void_p:
-    """A tensor's data pointer; an int is taken as a device address."""
+def _ptr(t) -> int:
+    """A tensor's data pointer; an int is taken as a device address, None
+    as a null pointer (the launchers' ``argtypes`` make each a pointer)."""
     if t is None or isinstance(t, int):
-        return ctypes.c_void_p(t or 0)
-    return ctypes.c_void_p(t.data_ptr())
+        return t or 0
+    return t.data_ptr()
+
+
+# the current stream's handle without building a torch.cuda.Stream object
+# on every launch (host time a small level's kernel does not hide); the
+# public call where this build of torch lacks the raw accessor
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def current_stream_handle(device: int) -> int:
+    """The ``cudaStream_t`` of the current stream of CUDA ``device``."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(device)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def cascade_table(scheme, mode: str, inverse: bool) -> np.ndarray:

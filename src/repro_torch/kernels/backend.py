@@ -111,10 +111,14 @@ def whole_budget_elems(device: Optional[torch.device] = None) -> int:
 
 _TILE_ENV = "REPRO_DWT_TILE"
 _MIN_TILE = 4  # tiles are even and >= 4 so every window has a full halo
+# the default core tile is 128 columns wide (16 groups of 16-byte band
+# stores per row) and as tall as fits, up to 128 rows
 _MAX_TILE = 128
-# a tile window takes at most a quarter of the SM's shared memory, so
-# four blocks can be resident on one SM
-_BLOCKS_PER_SM = 4
+# a tile window takes at most a third of the SM's shared memory (less the
+# 1 KB the card reserves per block), so three 512-thread blocks are
+# resident on one SM, as for the plane pass below
+_TILE_BLOCKS_PER_SM = 3
+_SMEM_RESERVED_PER_BLOCK = 1024
 
 
 def tile_forced() -> bool:
@@ -138,25 +142,50 @@ def _tile_env_override() -> Optional[Tuple[int, int]]:
     return th, tw
 
 
+def _max_offset(step: int, back: int) -> int:
+    """Largest ``(t * step - back) % 4`` over tile columns t: how far a
+    window's first entry can sit past the 16-byte aligned column before
+    it (``csrc/tiled2d.cu`` max_offset)."""
+    return max((t * step - back) % 4 for t in range(4))
+
+
+def tile_window_bytes(th: int, tw: int, margin: int) -> int:
+    """Shared memory of one block of the tiled forward or inverse level
+    (the larger) for ``(th, tw)`` core tiles and lifting margin
+    ``margin`` (halo ``2 * margin``), as ``csrc/tiled2d.cu`` allocates it:
+    ``th + 4*margin`` window rows, each padded to whole 16-byte groups
+    from an aligned column (forward: groups of 4 samples; inverse: two
+    planar halves, the even- and odd-column bands' entries, each in
+    groups of 4)."""
+    width = tw + 4 * margin
+    fwd = _cdiv(_max_offset(tw, 2 * margin) + width, 4) * 4
+    inv = _cdiv(2 * _max_offset(tw // 2, margin) + width, 8) * 8
+    return (th + 4 * margin) * max(fwd, inv) * 4
+
+
 def pick_tile(
     h: int, w: int, halo: int = 2, device: Optional[torch.device] = None
 ) -> Tuple[int, int]:
     """(TH, TW) core tile for a tiled level of an (h, w) image.
 
-    The largest power-of-two square tile, up to 128, whose halo'd int32
-    window ``(TH + 2*halo) * (TW + 2*halo) * 4`` bytes fits a quarter of
-    an SM's shared memory; then never wider than the image (odd dims
-    round up to even).  ``REPRO_DWT_TILE`` overrides.
+    TW = 128 and the largest even TH up to 128 whose forward and inverse
+    windows (:func:`tile_window_bytes`, margin ``halo // 2``) fit a third
+    of an SM's shared memory: (128, 128) for cdf53 and haar, (124, 128)
+    for 97m, whose inverse window at 128 rows would take 78,336 bytes.
+    Then never wider than the image (odd dims round up to even).
+    ``REPRO_DWT_TILE`` overrides, taken as given.
     """
     override = _tile_env_override()
     if override is not None:
         return override
-    share = budgets(device)["smem_per_sm"] // _BLOCKS_PER_SM
-    t = _MAX_TILE
-    while t > _MIN_TILE and (t + 2 * halo) ** 2 * 4 > share:
-        t //= 2
-    th = min(t, h + (h % 2))
-    tw = min(t, w + (w % 2))
+    b = budgets(device)
+    share = min(b["smem_per_sm"] // _TILE_BLOCKS_PER_SM - _SMEM_RESERVED_PER_BLOCK,
+                b["smem_per_block"])
+    th, tw = _MAX_TILE, _MAX_TILE
+    while th > _MIN_TILE and tile_window_bytes(th, tw, halo // 2) > share:
+        th -= 2
+    th = min(th, h + (h % 2))
+    tw = min(tw, w + (w % 2))
     return max(th, _MIN_TILE), max(tw, _MIN_TILE)
 
 
@@ -202,7 +231,6 @@ def strip_width(n: int, device: Optional[torch.device] = None) -> int:
 # are resident: one block's loads overlap another's lifting (measured on
 # the H100: 10-15% faster than two blocks of taller strips, PERF.md)
 _PLANE_BLOCKS_PER_SM = 3
-_SMEM_RESERVED_PER_BLOCK = 1024
 _PLANE_MIN_ROWS = 8  # fewer core rows than this re-read too much halo
 
 

@@ -41,7 +41,7 @@ submit, as the reference: one host min/max and a cascade trace
 could wrap a lifting intermediate before it rides a batch.
 
 Not ported yet, and refused with ``NotImplementedError``: ``mesh=``
-(ROADMAP.md Queue 1, item 7: the sharded transform).
+(ROADMAP.md Queue 1, item 8: the sharded transform).
 """
 from __future__ import annotations
 
@@ -126,7 +126,7 @@ class WaveletServeEngine:
 
         if self.mesh is not None:
             raise NotImplementedError(
-                "mesh is not ported to repro_torch yet; see ROADMAP.md Queue 1 item 7 "
+                "mesh is not ported to repro_torch yet; see ROADMAP.md Queue 1 item 8 "
                 "(the sharded transform)"
             )
         if self.batch_slots < 1:

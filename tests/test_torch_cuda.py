@@ -70,6 +70,75 @@ def test_cuda_kernels_match_plain_versions(name, mode, cuda_device):
     torch.cuda.synchronize(cuda_device)
 
 
+def _shifted(t, shift):
+    """``t``, or a contiguous copy whose data starts 4 bytes past a 16-byte
+    boundary (forcing the kernels' 4-byte loads and stores)."""
+    if not shift:
+        return t
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("name", ["cdf53", "97m", "haar"])
+def test_cuda_tiled_kernel_branches_match_plain_versions(name, mode, cuda_device):
+    """Every branch of csrc/tiled2d.cu: 16-byte and 4-byte loads and stores
+    (W % 8 == 0, W % 4 == 0 only, odd W, tw % 8 != 0, pointers off a
+    16-byte boundary), edge and interior tiles (3 x 3 tiles and more),
+    tiny forced tiles, the default tile, and int32 extremes."""
+    from repro_torch.kernels import backend as TB
+
+    rng = np.random.default_rng(31)
+    sch = TS.get_scheme(name)
+    shapes = [(5, 8), (9, 12), (17, 16), (33, 20), (64, 64), (100, 132), (600, 520),
+              (517, 389), (258, 264)]
+    for hw in shapes:
+        if not (sch.can_window(hw[0]) and sch.can_window(hw[1])):
+            continue
+        default = TB.pick_tile(*hw, sch.halo, cuda_device)
+        for kind in ("rand", "min", "max"):
+            x = _img(rng, (2,) + hw) if kind == "rand" else np.full(
+                (2,) + hw, I32.min if kind == "min" else I32.max, np.int32)
+            x[:, 1::5, ::3] = 7
+            xt = torch.from_numpy(x).to(cuda_device)
+            want = TF._fwd2d_math(xt, mode, name)
+            for th, tw in {(4, 6), (4, 4), (6, 12), (16, 8), (64, 64), default}:
+                for shift in (False, True):
+                    got = TT.fwd2d_tiled_cuda(_shifted(xt, shift), mode, th, tw, name)
+                    for a, b in zip(got, TT.fwd2d_tiled_plain(xt, mode, th, tw, name)):
+                        assert torch.equal(a, b), (hw, kind, th, tw, shift)
+                    bands = [_shifted(b, shift) for b in want]
+                    assert torch.equal(TT.inv2d_tiled_cuda(*bands, mode, th, tw, name),
+                                       TT.inv2d_tiled_plain(*want, mode, th, tw, name)), (
+                        hw, kind, th, tw, shift)
+    torch.cuda.synchronize(cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,mode", [("cdf53", "jpeg2000"), ("97m", "paper")])
+@pytest.mark.parametrize("side", [1024, 2048])
+def test_cuda_tiled_serve_batches_match_plain_versions(name, mode, side, cuda_device):
+    """The serve route's 8-slot batches at the default tile, and a level of
+    their pyramids through the dispatcher."""
+    from repro_torch.kernels import backend as TB
+
+    sch = TS.get_scheme(name)
+    xt = torch.randint(-(1 << 15), 1 << 15, (8, side, side), dtype=torch.int32,
+                       device=cuda_device)
+    th, tw = TB.pick_tile(side, side, sch.halo, cuda_device)
+    assert tw == 128
+    # the plain version crops the tiled bands: views
+    want = [b.contiguous() for b in TT.fwd2d_tiled_plain(xt, mode, th, tw, name)]
+    for a, b in zip(TT.fwd2d_tiled_cuda(xt, mode, th, tw, name), want):
+        assert torch.equal(a, b)
+    assert torch.equal(TT.inv2d_tiled_cuda(*want, mode, th, tw, name), xt)
+    assert TK.plan_2d(side, side, cuda_device, name) == "tiled-cuda"
+    torch.cuda.synchronize(cuda_device)
+
+
 @pytest.mark.cuda
 def test_cuda_pyramid_launches_every_kernel(cuda_device):
     rng = np.random.default_rng(8)

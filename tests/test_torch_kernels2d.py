@@ -232,7 +232,9 @@ def test_plan_2d_names_the_path(hw, name, plan):
 
 def test_tile_lever_keeps_reference_meaning(monkeypatch):
     assert not TB.tile_forced()
-    assert TB.pick_tile(2048, 2048, 2) == (64, 64)  # from the H100 budget
+    # from the H100 budget: three blocks' windows per SM
+    assert TB.pick_tile(2048, 2048, 2) == (128, 128)
+    assert TB.pick_tile(2048, 2048, 4) == (124, 128)  # 97m: the inverse window
     assert TB.pick_tile(9, 5, 4) == (10, 6)  # never wider than the image
     monkeypatch.setenv("REPRO_DWT_TILE", "6,8")
     assert TB.tile_forced()
