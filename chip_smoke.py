@@ -6,7 +6,8 @@ Run from the repository root on a machine with a CUDA card:
 
 Phases (any failure raises and the script exits nonzero):
 
-1. Print the card's name and power limit and the torch version; build
+1. Print the card's name and power limit, its INT32 rate (SMs x 64
+   INT32 lanes x the SM clock's maximum) and the torch version; build
    every kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per source,
    in parallel) and print the build time.
 2. Hold each of the four 2-D kernels (whole-image forward / inverse,
@@ -17,11 +18,12 @@ Phases (any failure raises and the script exits nonzero):
    default tile, on shapes of at least 3 x 3 default tiles ((2, 600, 520),
    (2, 517, 389): interior tiles that reflect nothing) and on the full
    8 x 2048^2 batch.
-   Then hold the Rice encode and decode kernels against theirs: rows,
-   ``k`` and bit counts with ``torch.equal``, payload bytes with ``==``,
-   on adversarial bands (constant, all-escape int32 extremes, one value,
-   empty, cost ties, partial tails, multi-thousand-block bands) and on
-   every band of one 1024^2 x 8 batch.
+   Then hold the Rice encode and decode kernels against theirs: payload
+   bytes with ``==``, ``k`` and byte-length tables with ``np.array_equal``,
+   decoded bands with ``torch.equal``, on adversarial bands (constant,
+   all-escape int32 extremes, one value, empty, cost ties, partial tails,
+   multi-thousand-block bands), each alone and all in one launch, and on
+   the 16 bands of one 1024^2 x 8 batch in one launch.
 3. Serve: ``WaveletServeEngine`` with 1024^2 and 2048^2 buckets, 8 slots,
    5 levels of the reversible 5/3 lift (cdf53, jpeg2000 rounding — JPEG
    2000 Part 1's lossless path) on 8-bit samples with the DC level shift,
@@ -37,8 +39,9 @@ Phases (any failure raises and the script exits nonzero):
    must be byte-equal to the container built from the plain Rice encode of
    the same bands; ``ProgressiveServeRoute`` thumbnails and full tiers are
    checked; no encode may degrade or quarantine.  The counters are reset
-   just before and read just after: all six kernels must have launched.
-   One 2048^2 x 8 encoded step is then timed phase by phase.
+   just before and read just after: all six kernels must have launched,
+   ``rice_encode`` once per encoded batch.  One 2048^2 x 8 encoded step
+   is then timed phase by phase.
 5. 1-D parity: the windowed 1-D kernels (``lift1d.cu``) and the row pass
    (``whole2d.cu``, the 1-D fallback) against their plain versions with
    ``torch.equal``: 4 schemes x 2 modes, n in {2, 3, 5, 15, 16, 17, 31,
@@ -85,7 +88,8 @@ Phases (any failure raises and the script exits nonzero):
    timed phase by phase.
 9. Time each kernel with CUDA events at the shapes its path gives it
    (one 2048^2 batch of 8 slots: every level for the 2-D kernels, all 16
-   bands for the Rice kernels; 4 levels at (a) 64 x 65,536, (b) 1024 x
+   bands for the Rice kernels, whose encode first codes them 20 times in
+   a row, each payload byte-equal to the first and to the plain encode; 4 levels at (a) 64 x 65,536, (b) 1024 x
    65,536 and (c) one line of 11,534,336 samples for the 1-D kernels, the
    cdf22 row pass at (a) and (c); the 4 levels of one 4 x (64, 512, 512)
    batch for the 3-D kernels, and the three-pass whole-volume path at its
@@ -101,6 +105,7 @@ Phases (any failure raises and the script exits nonzero):
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import pathlib
 import statistics
@@ -114,11 +119,10 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and the
-# float32 non-tensor-core rate, the closest published entry to the int32
-# add/shift work of a lifting step
+# H100 SXM published peak HBM3 bytes/s (NVIDIA data sheet); the integer
+# rate every kernel's op bound uses is the card's own (int32_ops_per_s)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
+INT32_LANES_PER_SM = 64  # Hopper: 16 INT32 lanes in each of an SM's 4 partitions
 
 SCHEMES = ("cdf53", "haar", "cdf22", "97m")
 MODES = ("paper", "jpeg2000")
@@ -145,17 +149,38 @@ KERNELS_1D = {
 
 # integer operations per coefficient either Rice direction needs at
 # least: encode — zigzag, bit length and next two bits into a per-block
-# histogram (from which all 25 k costs follow at a fixed cost per block),
-# code assembly and placement; decode — run count, shifts, or, unzigzag
+# histogram (from which all 25 k costs follow at a fixed cost per block:
+# csrc/rice.cu's bit-length form), code assembly and placement; decode —
+# run count, shifts, or, unzigzag
 RICE_OPS = 10
 
 
-def card_line() -> str:
+def _smi(query: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader", "-i", "0"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     return out.splitlines()[0]
+
+
+def card_line() -> str:
+    return _smi("name,power.limit")
+
+
+@functools.lru_cache(maxsize=1)
+def int32_ops_per_s() -> float:
+    """The card's INT32 rate: SMs x 64 INT32 lanes x the SM clock's
+    maximum, as ``nvidia-smi`` reads it (1.98 GHz on an H100 SXM)."""
+    mhz = float(_smi("clocks.max.sm").split()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count * INT32_LANES_PER_SM * mhz * 1e6
+
+
+def bound(nbytes: float, ops: float):
+    """(bound ms, what bounds it): the bytes at the HBM rate or the
+    integer operations at the card's INT32 rate, whichever takes longer."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / int32_ops_per_s() * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def _equal_or_raise(label, got, want) -> int:
@@ -266,30 +291,34 @@ def _plain_decode(payload, ks, lens, count, dev):
                                device=dev, chunk_blocks=4096)[:count]
 
 
-def rice_check(label, flat, dev) -> int:
-    """Hold both Rice kernels against their plain versions on one flat
-    CUDA band; returns the max |decoded - band| (0 or it raises)."""
+def _coded_equal(got, want) -> bool:
+    return got[0] == want[0] and np.array_equal(got[1], want[1]) and np.array_equal(got[2], want[2])
+
+
+def rice_check(label, bands, dev) -> int:
+    """Hold both Rice kernels against their plain versions on flat CUDA
+    bands coded in one launch: payload bytes, ``k`` and byte-length
+    tables; then decode each band with the kernel and the plain version,
+    both of which must give back the band.  Returns the max |decoded -
+    band| (0 or it raises)."""
     from repro_torch.codec import rice as R
 
-    count = flat.numel()
-    if count:
-        rows, ks, nbits = R.rice_encode_cuda(flat)
-        want = _plain_rows(flat)
-        _equal_or_raise(f"rice_encode {label}", [rows, nbits, ks.to(torch.int32)], list(want))
-    payload, ks, lens = R.encode_band(flat)
-    want_payload, want_ks, want_lens = R.encode_band_plain(flat, chunk_blocks=8192)
-    if payload != want_payload or not (np.array_equal(ks, want_ks)
-                                       and np.array_equal(lens, want_lens)):
-        raise AssertionError(f"rice_encode {label}: payload or tables differ from the plain version")
-    got = R.decode_band(payload, ks, lens, count, device=dev)
-    if count:
-        _equal_or_raise(f"rice_decode {label}", [got], [_plain_decode(payload, ks, lens, count, dev)])
-    return _equal_or_raise(f"rice roundtrip {label}", [got], [flat])
+    err = 0
+    for i, (flat, got) in enumerate(zip(bands, R.encode_bands(bands))):
+        if not _coded_equal(got, R.encode_band_plain(flat, chunk_blocks=8192)):
+            raise AssertionError(f"rice_encode {label} band {i}: payload or tables differ from "
+                                 "the plain version")
+        back = R.decode_band(*got, flat.numel(), device=dev)
+        if flat.numel():
+            _equal_or_raise(f"rice_decode {label} band {i}", [back],
+                            [_plain_decode(*got, flat.numel(), dev)])
+        err = max(err, _equal_or_raise(f"rice roundtrip {label} band {i}", [back], [flat]))
+    return err
 
 
 def rice_sweep(rng, dev) -> dict:
-    """Phase 2, Rice half: adversarial bands and every band of one
-    1024^2 x 8 batch."""
+    """Phase 2, Rice half: adversarial bands, each alone and all in one
+    launch, and the 16 bands of one 1024^2 x 8 batch in one launch."""
     from repro_torch import kernels as K
 
     tie = np.concatenate([np.full(128, -1), np.full(128, 1)])  # u = 1, 2: k = 0, 1, 2 tie
@@ -302,15 +331,19 @@ def rice_sweep(rng, dev) -> dict:
         "blocks_5000": rng.integers(-40, 40, 5000 * 256 + 3),
         "blocks_20000": rng.integers(-1 << 12, 1 << 12, 20000 * 256),
     }
+    flats = {name: torch.from_numpy(np.asarray(v).astype(np.int32)).to(dev)
+             for name, v in bands.items()}
     cases = 0
-    for name, vals in bands.items():
-        rice_check(name, torch.from_numpy(np.asarray(vals).astype(np.int32)).to(dev), dev)
+    for name, flat in flats.items():
+        rice_check(name, [flat], dev)
         cases += 1
+    rice_check("all adversarial bands at once", list(flats.values()), dev)
+    cases += 1
     x = torch.from_numpy(rng.integers(-128, 128, (SLOTS, 1024, 1024), dtype=np.int32)).to(dev)
     pyr = K.dwt_fwd_2d_multi(x, levels=LEVELS, mode=MODE, scheme=SCHEME)
-    for i, band in enumerate([pyr.ll] + [b for lvl in pyr.details for b in lvl]):
-        rice_check(f"1024^2x8 band {i} {tuple(band.shape)}", band.reshape(-1), dev)
-        cases += 1
+    rice_check("1024^2x8 bands", [b.reshape(-1) for b in [pyr.ll] + [b for lvl in pyr.details
+                                                                     for b in lvl]], dev)
+    cases += 1
     torch.cuda.synchronize(dev)
     return {"rice": cases}
 
@@ -321,6 +354,7 @@ def rice_sweep(rng, dev) -> dict:
 
 BUCKETS = ((1024, 1024), (2048, 2048))
 SLOTS, LEVELS, SCHEME, MODE = 8, 5, "cdf53", "jpeg2000"
+STRESS_RUNS = 20  # encodes of the 2048^2 x 8 batch's 16 bands that must all agree
 
 
 def make_requests(rng, n):
@@ -482,7 +516,6 @@ def encoded_breakdown(big, dev) -> dict:
     timed alone on the host clock with a device sync after it."""
     from repro_torch import kernels as K
     from repro_torch.codec import container as C
-    from repro_torch.codec import rice as R
 
     def assemble_batch():
         batch = np.zeros((SLOTS,) + BUCKETS[-1], np.int32)
@@ -496,25 +529,33 @@ def encoded_breakdown(big, dev) -> dict:
     pyr, ms["forward_all_levels"] = _timed(
         lambda: K.dwt_fwd_2d_multi(xb, levels=LEVELS, mode=MODE, scheme=SCHEME), dev)
     bands = [b.reshape(-1) for b in [pyr.ll] + [b for lvl in pyr.details for b in lvl]]
-    # the stages of codec.rice.encode_band_cuda, each timed over all 16 bands
-    enc, ms["rice_encode_kernel"] = _timed(lambda: [R.rice_encode_cuda(b) for b in bands], dev)
-    offs, ms["byte_offsets"] = _timed(lambda: [R.byte_offsets(e[2]) for e in enc], dev)
-    tables, ms["tables_to_host"] = _timed(
-        lambda: [R.tables_to_host(e[1], lens) for e, (lens, _) in zip(enc, offs)], dev)
-    payloads, ms["compaction_kernel"] = _timed(lambda: [
-        R.rice_compact_cuda(e[0], e[2], o, int(t[1].sum()))
-        for e, (_, o), t in zip(enc, offs, tables)], dev)
-    coded, ms["device_to_host_payload"] = _timed(lambda: [
-        (R.payload_to_host(p),) + t for p, t in zip(payloads, tables)], dev)
-    for i, (got, want) in enumerate(zip(coded, [R.encode_band_cuda(b) for b in bands])):
-        if got[0] != want[0] or not all(np.array_equal(g, w) for g, w in zip(got[1:], want[1:])):
-            raise AssertionError(f"band {i}: encode stages differ from encode_band_cuda")
+    coded, enc_ms = encode_stages(bands, dev)
+    ms.update(enc_ms)
     blob, ms["host_crc32_and_header"] = _timed(lambda: C.assemble(
         coded, C.KIND_2D, SCHEME, MODE, np.dtype(np.int32), LEVELS, 2, (SLOTS,), BUCKETS[-1]),
         dev)
     ms["step_sum"] = sum(ms.values())
+    if blob != C.encode_batch(pyr, scheme=SCHEME, mode=MODE):
+        raise AssertionError("2-D step stages differ from encode_batch")
     return {"ms": ms, "container_bytes": len(blob), "payload_bytes": sum(len(c[0]) for c in coded),
             "coefficients": sum(b.numel() for b in bands)}
+
+
+def encode_stages(bands, dev):
+    """The stages of ``codec.rice.encode_bands_cuda`` on one step's flat
+    bands, each timed alone on the host clock with a device sync after
+    it: the launch, the tables' copy to the host, the payload's copy (and
+    its cut into the bands).  Returns (the bands' codings, ms by stage)."""
+    from repro_torch.codec import rice as R
+
+    ms = {}
+    (payload, tables), ms["rice_encode_kernel"] = _timed(lambda: R.rice_encode_cuda(bands), dev)
+    (offs, ks, lens), ms["tables_to_host"] = _timed(
+        lambda: R.tables_to_host(tables, len(bands)), dev)
+    coded, ms["device_to_host_payload"] = _timed(lambda: R.split_bands(
+        R.payload_to_host(payload, int(offs[-1])), offs, ks, lens, [b.numel() for b in bands]),
+        dev)
+    return coded, ms
 
 
 def serve_encoded(rng, dev, n_requests) -> dict:
@@ -570,9 +611,12 @@ def serve_encoded(rng, dev, n_requests) -> dict:
         raise AssertionError(f"encode degraded {degrades} / quarantined {quarantines} times")
     if len(served) != n_requests:
         raise AssertionError(f"served {len(served)} of {n_requests} requests")
-    for k in list(KERNELS) + ["rice_compact"]:  # rice_compact: the second kernel of rice_encode
+    for k in KERNELS:
         if counts.get(k, 0) <= 0:
             raise AssertionError(f"kernel {k} never launched on the encoded serve path: {counts}")
+    if encode_counts.get("rice_encode") != len(lat_ms):
+        raise AssertionError(f"{encode_counts.get('rice_encode')} rice_encode launches for "
+                             f"{len(lat_ms)} encoded batches: want one per batch")
 
     # one batch per bucket: byte-equal to the plain Rice encode of its bands
     plain_checked = []
@@ -681,13 +725,11 @@ def time_kernels(rng, dev) -> list:
     for name in KERNELS_2D:
         source, replaces = KERNELS[name]
         e = per[name]
-        t_bytes = e["bytes"] / PEAK_BYTES_PER_S * 1e3
-        t_ops = e["ops"] / PEAK_OPS_PER_S * 1e3
+        bound_ms, bound_by = bound(e["bytes"], e["ops"])
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": 0, "max_abs_err": e["err"], "ms": e["ms"], "plain_ms": e["plain_ms"],
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "levels": e["levels"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "levels": e["levels"],
         })
     return out
 
@@ -695,9 +737,12 @@ def time_kernels(rng, dev) -> list:
 def time_rice(rng, dev) -> list:
     """Both Rice kernels over all 16 bands of one 2048^2 x 8 batch (half
     random, half smooth images, 5 levels), beside their plain versions
-    and their bounds.  ``rice_encode`` is timed as the whole encode on
-    the card: its encode kernel, the byte offsets and its compaction
-    kernel."""
+    and their bounds.  ``rice_encode`` codes the 16 bands in one launch
+    and is timed as that launch (its workspace memset, the bands' table
+    copied to the card, the kernel).  Before the timing it codes them
+    STRESS_RUNS times in a row, the tiles' order on the card differing
+    from run to run: every run's payload and tables must equal the plain
+    encode's, so every run equals the first."""
     from repro_torch import kernels as K
     from repro_torch.codec import rice as R
 
@@ -708,23 +753,16 @@ def time_rice(rng, dev) -> list:
     pyr = K.dwt_fwd_2d_multi(x, levels=LEVELS, mode=MODE, scheme=SCHEME)
     bands = [b.reshape(-1) for b in [pyr.ll] + [b for lvl in pyr.details for b in lvl]]
     count = sum(b.numel() for b in bands)
-
-    enc = [R.rice_encode_cuda(b) for b in bands]
-    enc_err = max(_equal_or_raise(f"rice_encode band {i}", [e[0], e[2], e[1].to(torch.int32)],
-                                  list(_plain_rows(b))) for i, (b, e) in enumerate(zip(bands, enc)))
-    coded = [R.encode_band(b) for b in bands]
+    coded = [R.encode_band_plain(b, chunk_blocks=8192) for b in bands]
+    for run in range(STRESS_RUNS):
+        if not all(_coded_equal(g, c) for g, c in zip(R.encode_bands(bands), coded)):
+            raise AssertionError(f"rice_encode look-back stress run {run}: the 16 bands differ "
+                                 "from the plain encode")
     payload = sum(len(c[0]) for c in coded)
-    totals = [len(c[0]) for c in coded]
+    nblocks = sum(len(c[1]) for c in coded)
 
     def encode_on_card():
-        """The whole encode on the card, up to the payload's copy to the
-        host: the encode kernel, the byte offsets and the compaction
-        kernel (each band's payload size taken from the run above)."""
-        out = []
-        for b, total in zip(bands, totals):
-            rows, _, nbits = R.rice_encode_cuda(b)
-            out.append(R.rice_compact_cuda(rows, nbits, R.byte_offsets(nbits)[1], total))
-        return out
+        return R.rice_encode_cuda(bands)
 
     def encode_plain():
         out = []
@@ -734,8 +772,12 @@ def time_rice(rng, dev) -> list:
             out.append(rows[torch.arange(rows.shape[1], device=dev)[None, :] < lens[:, None]])
         return out
 
-    enc_err = max(enc_err, _equal_or_raise("rice_encode payloads", encode_on_card(),
-                                           encode_plain()))
+    pay, tables = encode_on_card()
+    _, ks, lens = R.tables_to_host(tables, len(bands))
+    enc_err = _equal_or_raise("rice_encode payload and tables", [
+        pay[:payload], torch.from_numpy(ks.copy()), torch.from_numpy(lens.astype(np.int32))], [
+        torch.cat(encode_plain()), torch.from_numpy(np.concatenate([c[1] for c in coded])),
+        torch.from_numpy(np.concatenate([c[2] for c in coded]).astype(np.int32))])
     dec_in = []
     for pay, ks, lens in coded:
         offs = np.concatenate([[0], np.cumsum(lens.astype(np.int64))[:-1]])
@@ -748,9 +790,10 @@ def time_rice(rng, dev) -> list:
         [_plain_decode(c[0], c[1], c[2], b.numel(), dev)])
         for i, (b, c, inp) in enumerate(zip(bands, coded, dec_in)))
 
-    runs = {
+    runs = {  # bytes: the bands read once; payload, tables and band offsets written once
         "rice_encode": (encode_on_card, encode_plain,
-                        4 * count + payload, RICE_OPS * count, enc_err),
+                        4 * count + payload + 3 * nblocks + 8 * (len(bands) + 1),
+                        RICE_OPS * count, enc_err),
         "rice_decode": (lambda: [R.rice_decode_cuda(*inp) for inp in dec_in],
                         lambda: [_plain_decode(c[0], c[1], c[2], b.numel(), dev)
                                  for b, c in zip(bands, coded)],
@@ -759,15 +802,16 @@ def time_rice(rng, dev) -> list:
     out = []
     for name, (kern, plain, nbytes, ops, err) in runs.items():
         source, replaces = KERNELS[name]
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_OPS_PER_S * 1e3
+        bound_ms, bound_by = bound(nbytes, ops)
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": 0, "max_abs_err": err, "ms": _median_ms(kern, 10),
-            "plain_ms": _median_ms(plain, 1), "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
+            "plain_ms": _median_ms(plain, 1), "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
             "levels": [{"shape": [len(bands), count], "payload_bytes": payload,
-                        "bits_per_coefficient": 8 * payload / count}],
+                        "bits_per_coefficient": 8 * payload / count,
+                        "device_ms": _pass_ms(kern),
+                        "stress_runs": STRESS_RUNS if name == "rice_encode" else 0}],
         })
     return out
 
@@ -941,7 +985,7 @@ def library_path_1d(rng, dev) -> dict:
     counts = K.launches.snapshot()
     if guard.calls:
         raise AssertionError(f"plain versions ran on CUDA tensors on the 1-D path: {guard.calls}")
-    need = list(KERNELS_1D) + ["rice_encode", "rice_compact", "rice_decode"]
+    need = list(KERNELS_1D) + ["rice_encode", "rice_decode"]
     missing = [k for k in need if counts.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels {missing} never launched on the 1-D path: {counts}")
@@ -1032,10 +1076,7 @@ def time_1d(rng, dev) -> list:
             x = s
         for name, e in per.items():
             if e["bytes"]:
-                t_bytes = e["bytes"] / PEAK_BYTES_PER_S * 1e3
-                t_ops = e["ops"] / PEAK_OPS_PER_S * 1e3
-                e["bound_ms"] = max(t_bytes, t_ops)
-                e["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+                e["bound_ms"], e["bound_by"] = bound(e["bytes"], e["ops"])
                 entries[name]["per_shape"][key] = e
         del x0, x, s, d
         torch.cuda.empty_cache()
@@ -1245,7 +1286,6 @@ def volume_breakdown(reqs, dev) -> dict:
     each timed alone on the host clock with a device sync after it."""
     from repro_torch import kernels as K
     from repro_torch.codec import container as C
-    from repro_torch.codec import rice as R
 
     bucket = VOL_BUCKETS[-1]
 
@@ -1261,15 +1301,8 @@ def volume_breakdown(reqs, dev) -> dict:
     pyr, ms["forward_all_levels"] = _timed(
         lambda: K.dwt_fwd_nd(xb, levels=VOL_LEVELS, mode=VOL_MODE, scheme=VOL_SCHEME), dev)
     bands = [b.reshape(-1) for b in _leaves3(pyr)]
-    enc, ms["rice_encode_kernel"] = _timed(lambda: [R.rice_encode_cuda(b) for b in bands], dev)
-    offs, ms["byte_offsets"] = _timed(lambda: [R.byte_offsets(e[2]) for e in enc], dev)
-    tables, ms["tables_to_host"] = _timed(
-        lambda: [R.tables_to_host(e[1], lens) for e, (lens, _) in zip(enc, offs)], dev)
-    payloads, ms["compaction_kernel"] = _timed(lambda: [
-        R.rice_compact_cuda(e[0], e[2], o, int(t[1].sum()))
-        for e, (_, o), t in zip(enc, offs, tables)], dev)
-    coded, ms["device_to_host_payload"] = _timed(lambda: [
-        (R.payload_to_host(p),) + t for p, t in zip(payloads, tables)], dev)
+    coded, enc_ms = encode_stages(bands, dev)
+    ms.update(enc_ms)
     blob, ms["host_crc32_and_header"] = _timed(lambda: C.assemble(
         coded, C.KIND_ND, VOL_SCHEME, VOL_MODE, np.dtype(np.int32), VOL_LEVELS, 3, (VOL_SLOTS,),
         bucket), dev)
@@ -1389,7 +1422,7 @@ def volume_paths(rng, dev) -> dict:
     metrics = obs.snapshot()["metrics"]
     if guard.calls:
         raise AssertionError(f"plain versions ran on CUDA tensors on the 3-D path: {guard.calls}")
-    need = list(KERNELS_3D) + ["rice_encode", "rice_compact", "rice_decode"]
+    need = list(KERNELS_3D) + ["rice_encode", "rice_decode"]
     missing = [k for k in need if counts.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels {missing} never launched on the 3-D path: {counts}")
@@ -1577,13 +1610,12 @@ def time_3d(rng, dev) -> list:
     out = []
     for name, (source, replaces) in KERNELS_3D.items():
         e = per[name]
-        t_bytes = e["bytes"] / PEAK_BYTES_PER_S * 1e3
-        t_ops = e["ops"] / PEAK_OPS_PER_S * 1e3
+        bound_ms, bound_by = bound(e["bytes"], e["ops"])
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": 0, "max_abs_err": e["err"], "ms": e["ms"], "plain_ms": e["plain_ms"],
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "levels": e["levels"], "three_pass": multipass.get(name),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "levels": e["levels"], "three_pass": multipass.get(name),
         })
     return out
 
@@ -1599,7 +1631,10 @@ def main() -> int:
         return 2
     dev = torch.device("cuda", 0)
     card = card_line()
-    print(f"card: {card}; torch {torch.__version__} (CUDA {torch.version.cuda})", flush=True)
+    print(f"card: {card}; INT32 rate {int32_ops_per_s():.4g} ops/s "
+          f"({torch.cuda.get_device_properties(0).multi_processor_count} SMs x "
+          f"{INT32_LANES_PER_SM} lanes x {_smi('clocks.max.sm')}); torch {torch.__version__} "
+          f"(CUDA {torch.version.cuda})", flush=True)
 
     from repro_torch.kernels import _build
 
@@ -1636,9 +1671,9 @@ def main() -> int:
           f"container decoded on the card and every request bit-exact; plain-encode "
           f"containers equal for {enc['plain_container_checked']}; encode degrades "
           f"{enc['encode_degrades']}, quarantines {enc['encode_quarantines']}", flush=True)
-    print(f"launches on the encoded serve path (rice_compact: the compaction kernel of "
-          f"rice_encode): serving {enc['launches_serve']}, "
-          f"with the client's decode and reconstruction {enc['launches']}")
+    print(f"launches on the encoded serve path: serving {enc['launches_serve']} (rice_encode "
+          f"once per encoded batch), with the client's decode and reconstruction "
+          f"{enc['launches']}")
     bd = enc["breakdown_2048_ms"]
     print(f"one encoded 2048^2 x 8 step ({bd['coefficients']} coefficients, "
           f"{bd['payload_bytes']} payload bytes, {bd['container_bytes']} container bytes), ms: "

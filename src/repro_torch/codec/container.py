@@ -14,10 +14,10 @@ module's docstring for the full layout.
 
 Where the port differs from the reference:
 
-  * Bands are tensors and stay where they live: encode hands each band
-    to ``rice.encode_band`` as the tensor it is (on the card, the Rice
-    kernels; only the coded bytes come back), and nothing here calls
-    ``np.asarray`` on a band.  CRC32, parity and header assembly are host
+  * Bands are tensors and stay where they live: encode hands all of a
+    pyramid's bands to ``rice.encode_bands`` as the tensors they are (on
+    the card, one Rice kernel launch for all of them; only the coded
+    bytes come back), and nothing here calls ``np.asarray`` on a band.  CRC32, parity and header assembly are host
     code on the coded bytes, as in the reference.
   * Decode rebuilds bands on ``device`` — the card by default, raising
     without one; ``device="cpu"`` runs the plain versions.
@@ -324,7 +324,7 @@ def _encode_impl(
                 label="codec.encode_pyramid",
             )
 
-    coded = [rice.encode_band(band) for band in bands]
+    coded = rice.encode_bands(bands)
     return assemble(coded, kind, scheme, mode, dt, levels, nd, lead, shape,
                     checksum=checksum, parity=parity, version=version)
 

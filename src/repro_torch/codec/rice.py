@@ -13,10 +13,11 @@ Two hand-written CUDA kernels (``csrc/rice.cu``) take a CUDA tensor:
 
   * ``rice_encode`` — the reference's Pallas stage ``_pack_words_pallas``
     fused with the jnp stages around it (``_encode_chunk``): zigzag, the
-    k-cost scan, code lengths, their prefix sum, bit placement and the
-    word pack, one thread block per Rice block, into a padded
-    ``BYTES_CAP``-byte row per block; a second small kernel compacts the
-    rows to the payload at the byte offsets ``torch.cumsum`` gives;
+    k-cost scan, code lengths, their prefix sum, bit placement, the word
+    pack and the byte offsets, one warp per Rice block, in ONE launch
+    over every band of a pyramid: each block's bytes go straight to
+    their final offset in one payload, beside the k and byte-length
+    tables;
   * ``rice_decode`` — the reference's 256-step ``lax.scan`` of gathers
     (``_decode_chunk``, no Pallas kernel on the TPU side): one thread per
     Rice block walks its codes from its own byte range.
@@ -28,15 +29,16 @@ written as the reference writes them.  Unsigned 32-bit arithmetic runs in
 int64 masked to 32 bits (torch's uint32 coverage on the CPU is partial),
 which gives the reference's bits for ``INT32_MIN`` / ``INT32_MAX``.
 
-Host-facing API: :func:`encode_band` takes a tensor and codes it where it
-lives (CUDA: the kernels, whole band per launch, only the compact payload
-and the tables come to the host; CPU: the plain version in
-``CHUNK_BLOCKS`` chunks); :func:`decode_band` rebuilds the band on
-``device`` (the card by default; it raises without one).
+Host-facing API: :func:`encode_bands` takes a pyramid's bands and codes
+each where it lives (the CUDA bands of a device: one launch, then one
+copy of the tables and one of exactly the payload's bytes to the host;
+CPU bands: the plain version in ``CHUNK_BLOCKS`` chunks);
+:func:`encode_band` is it for one band; :func:`decode_band` rebuilds a
+band on ``device`` (the card by default; it raises without one).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -278,39 +280,32 @@ def decode_band_plain(
 # The CUDA kernels (csrc/rice.cu).
 # ---------------------------------------------------------------------------
 
+Coded = Tuple[bytes, np.ndarray, np.ndarray]
 
-def rice_encode_cuda(flat: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
-    """Launch ``csrc/rice.cu`` ``rice_encode`` on a flat int32 CUDA band
-    (values past its end code as the zero padding of the last block).
-    Replaces ``repro.codec.rice._pack_words_pallas`` and the jnp stages of
-    ``_encode_chunk`` around it.  Returns (rows (nb, BYTES_CAP) uint8,
-    k (nb,) uint8, nbits (nb,) int32), every row zero past its bits."""
-    dev = _build.check_tensors("rice_encode", [flat])
-    count = flat.numel()
-    nb = n_blocks(count)
-    if nb == 0:
-        raise ValueError("rice_encode: empty band (no block to launch)")
-    rows = torch.empty((nb, BYTES_CAP), dtype=torch.uint8, device=flat.device)
-    ks = torch.empty(nb, dtype=torch.uint8, device=flat.device)
-    nbits = torch.empty(nb, dtype=torch.int32, device=flat.device)
-    _build.launch("rice", "repro_rice_encode", dev, (flat, rows, ks, nbits), (count, nb))
+
+def rice_encode_cuda(bands: Sequence[Tensor]) -> Tuple[Tensor, Tensor]:
+    """Launch ``csrc/rice.cu`` ``rice_encode`` once over flat int32 CUDA
+    bands, none empty, on one device (each band's last block codes its
+    zero pad as values).  Replaces ``repro.codec.rice._pack_words_pallas``
+    and the jnp stages of ``_encode_chunk`` around it, for every band at
+    once.  Returns (payload, tables), both uint8 on the card: the bands'
+    coded bytes back to back from offset 0 (the buffer is sized for the
+    worst case, ``BYTES_CAP`` per block), and the tables that
+    :func:`tables_to_host` reads."""
+    dev = _build.check_tensors("rice_encode", bands)
+    counts = [b.numel() for b in bands]
+    if not bands or min(counts) == 0:
+        raise ValueError("rice_encode: needs at least one band, none empty (no block to launch)")
+    firsts = np.concatenate([[0], np.cumsum([n_blocks(c) for c in counts])])
+    nb = int(firsts[-1])
+    table = np.concatenate([firsts, [b.data_ptr() for b in bands], counts]).astype(np.int64)
+    device = bands[0].device
+    payload = torch.empty(nb * BYTES_CAP, dtype=torch.uint8, device=device)
+    tables = torch.empty(8 * (len(bands) + 1) + 3 * nb, dtype=torch.uint8, device=device)
+    work = torch.empty(nb + 1 + len(table), dtype=torch.int64, device=device)
+    _build.launch("rice", "repro_rice_encode", dev, (payload, tables, work), (nb,), table)
     _backend.launches.bump("rice_encode")
-    return rows, ks, nbits
-
-
-def rice_compact_cuda(rows: Tensor, nbits: Tensor, offs: Tensor, total: int) -> Tensor:
-    """Copy each row's ``ceil(nbits / 8)`` bytes to ``offs`` (int64,
-    exclusive prefix sum of the byte lengths) of a ``total``-byte payload:
-    the compaction step of ``rice_encode``."""
-    dev = _build.check_tensors("rice_compact", [rows], (torch.uint8,))
-    _build.check_tensors("rice_compact", [nbits])
-    _build.check_tensors("rice_compact", [offs], (torch.int64,))
-    payload = torch.empty(total, dtype=torch.uint8, device=rows.device)
-    if total:
-        _build.launch("rice", "repro_rice_compact", dev, (rows, nbits, offs, payload),
-                      (rows.shape[0],))
-        _backend.launches.bump("rice_compact")
-    return payload
+    return payload, tables
 
 
 def rice_decode_cuda(payload: Tensor, offs: Tensor, lens: Tensor, ks: Tensor) -> Tensor:
@@ -330,36 +325,54 @@ def rice_decode_cuda(payload: Tensor, offs: Tensor, lens: Tensor, ks: Tensor) ->
     return out
 
 
-def byte_offsets(nbits: Tensor) -> Tuple[Tensor, Tensor]:
-    """Per-block byte lengths (int32) and their exclusive prefix sum
-    (int64 byte offsets into the payload), on the blocks' device."""
-    lens = (nbits + 7) >> 3
-    return lens, torch.cumsum(lens, 0, dtype=torch.int64) - lens
+def split_tables(raw: np.ndarray, nbands: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The encode kernel's tables as host bytes -> (each band's first
+    byte offset in the payload and the total, int64 (nbands + 1); each
+    block's k, uint8; each block's byte length, uint16)."""
+    nb = (raw.size - 8 * (nbands + 1)) // 3
+    offs = np.frombuffer(raw, np.int64, nbands + 1)
+    lens = np.frombuffer(raw, np.uint16, nb, 8 * (nbands + 1))
+    ks = np.frombuffer(raw, np.uint8, nb, 8 * (nbands + 1) + 2 * nb)
+    return offs, ks, lens
 
 
-def tables_to_host(ks: Tensor, lens: Tensor) -> Tuple[np.ndarray, np.ndarray]:
-    """One copy of the k and byte-length tables to the host: (k uint8,
-    byte lengths uint16), as the container stores them."""
+def tables_to_host(tables: Tensor, nbands: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """One copy of the encode kernel's tables to the host: see
+    :func:`split_tables`."""
     with _build.device_errors("rice tables to host"):
-        tables = torch.stack([ks.to(torch.int32), lens]).cpu().numpy()
-    return tables[0].astype(np.uint8), tables[1].astype(np.uint16)
+        return split_tables(tables.cpu().numpy(), nbands)
 
 
-def payload_to_host(payload: Tensor) -> bytes:
+def payload_to_host(payload: Tensor, total: int) -> np.ndarray:
+    """One copy of the payload's first ``total`` bytes to the host,
+    through a pinned staging buffer."""
+    host = torch.empty(total, dtype=torch.uint8, pin_memory=True)
     with _build.device_errors("rice payload to host"):
-        return payload.cpu().numpy().tobytes()
+        host.copy_(payload[:total])
+    return host.numpy()
 
 
-def encode_band_cuda(flat: Tensor) -> Tuple[bytes, np.ndarray, np.ndarray]:
-    """:func:`encode_band` on a flat int32 CUDA band: the encode kernel,
-    the byte offsets, one copy of the tables to the host, the compaction
-    kernel, then only the payload's bytes.  A kernel fault that surfaces
-    at a copy to the host raises ``KernelLaunchError``."""
-    rows, ks, nbits = rice_encode_cuda(flat)
-    lens, offs = byte_offsets(nbits)
-    k_h, lens_h = tables_to_host(ks, lens)
-    payload = rice_compact_cuda(rows, nbits, offs, int(lens_h.sum()))
-    return payload_to_host(payload), k_h, lens_h
+def split_bands(raw: np.ndarray, offs: np.ndarray, ks: np.ndarray, lens: np.ndarray,
+                counts: Sequence[int]) -> List[Coded]:
+    """Host payload bytes and tables -> each band's ``(payload, k_table,
+    byte_lengths)``, the bands' value counts giving their blocks."""
+    firsts = np.concatenate([[0], np.cumsum([n_blocks(c) for c in counts])])
+    return [
+        (raw[offs[i] : offs[i + 1]].tobytes(), ks[firsts[i] : firsts[i + 1]].copy(),
+         lens[firsts[i] : firsts[i + 1]].copy())
+        for i in range(len(counts))
+    ]
+
+
+def encode_bands_cuda(flats: Sequence[Tensor]) -> List[Coded]:
+    """:func:`encode_bands` on flat int32 CUDA bands of one device, none
+    empty: one launch, one copy of the tables to the host, then one copy
+    of exactly the payload's bytes.  A kernel fault that surfaces at a
+    copy to the host raises ``KernelLaunchError``."""
+    payload, tables = rice_encode_cuda(flats)
+    offs, ks, lens = tables_to_host(tables, len(flats))
+    raw = payload_to_host(payload, int(offs[-1]))
+    return split_bands(raw, offs, ks, lens, [f.numel() for f in flats])
 
 
 # ---------------------------------------------------------------------------
@@ -376,21 +389,36 @@ def _flat_int32(x) -> Tensor:
     return x.reshape(-1).to(torch.int32).contiguous()
 
 
-def encode_band(x) -> Tuple[bytes, np.ndarray, np.ndarray]:
-    """Rice-encode a flat integer band where it lives.
+def encode_bands(bands: Sequence) -> List[Coded]:
+    """Rice-encode flat integer bands where they live, in order.
 
-    Returns ``(payload, k_table, byte_lengths)`` — the byte-aligned
-    concatenated block bitstreams plus the per-block Rice parameters
-    (uint8) and encoded byte counts (uint16) the container serialises,
-    byte for byte the reference's.  A CUDA tensor goes to the kernels
-    (one launch for the whole band), a CPU tensor to the plain version.
+    Returns one ``(payload, k_table, byte_lengths)`` per band — the
+    byte-aligned concatenated block bitstreams plus the per-block Rice
+    parameters (uint8) and encoded byte counts (uint16) the container
+    serialises, byte for byte the reference's.  The CUDA bands of a
+    device take one launch for all of them (:func:`encode_bands_cuda`),
+    CPU bands the plain version, empty bands nothing.
     """
-    flat = _flat_int32(x)
-    if flat.numel() == 0:  # no block: nothing to launch
-        return b"", np.zeros(0, np.uint8), np.zeros(0, np.uint16)
-    if _backend.on_cuda(flat):
-        return encode_band_cuda(flat)
-    return encode_band_plain(flat)
+    flats = [_flat_int32(b) for b in bands]
+    out: List[Optional[Coded]] = [None] * len(flats)
+    on_card: Dict[torch.device, List[int]] = {}
+    for i, flat in enumerate(flats):
+        if flat.numel() == 0:  # no block: nothing to launch
+            out[i] = (b"", np.zeros(0, np.uint8), np.zeros(0, np.uint16))
+        elif _backend.on_cuda(flat):
+            on_card.setdefault(flat.device, []).append(i)
+        else:
+            out[i] = encode_band_plain(flat)
+    for idx in on_card.values():
+        for i, coded in zip(idx, encode_bands_cuda([flats[i] for i in idx])):
+            out[i] = coded
+    return out
+
+
+def encode_band(x) -> Coded:
+    """Rice-encode one flat integer band where it lives:
+    ``encode_bands([x])[0]``."""
+    return encode_bands([x])[0]
 
 
 def _check_tables(payload: bytes, k_table, byte_lengths, count: int):

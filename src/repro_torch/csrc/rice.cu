@@ -4,15 +4,48 @@
 // (body _pack_kernel), fused with the stages the reference keeps in jnp
 // around it (_encode_chunk): zigzag, the exact cost of every k in
 // 0..K_MAX, the first minimum (jnp.argmin's rule), code lengths, their
-// exclusive prefix sum, the bit placement and the word pack.  On the TPU
-// the chunk's codes are scattered onto a (nb, 256, 40) bit grid in device
-// memory and the kernel ORs 32 bit planes into words; here one thread
-// block per Rice block keeps everything in shared memory: its 256 codes
-// are OR-ed (atomicOr, the codes are disjoint) into a 320-word buffer, and
-// the words go out byte-swapped, so row byte i holds stream bits
-// 8i..8i+7 MSB first — the reference's word->byte order.  Each block
-// writes its whole padded BYTES_CAP-byte row; rice_compact then copies
-// each row's ceil(nbits/8) bytes to its offset in the payload.
+// exclusive prefix sum, the bit placement, the word pack, and the cut of
+// each block's row to its ceil(nbits / 8) bytes at its offset in the
+// payload.  One launch codes every band of a pyramid in a single pass:
+//
+//  * one warp per Rice block, kWarps blocks per thread block (a tile);
+//    a lane holds 8 consecutive values from two 16-byte loads;
+//  * the cost of every k comes from the block's values binned by bit
+//    length, not from 25 passes over them: a value of bit length b is an
+//    escape (40 bits) for k < b - 3, costs 1 + k for k >= b, and adds a
+//    quotient u >> k in 1..7 only at k = b - 1, b - 2, b - 3, which the
+//    two bits below its top bit give.  So a bin holds a count and the sums
+//    of those bits, each lane keeps its own column of bins in shared
+//    memory (no atomics, no bank conflicts), and lane k sums the columns
+//    (16-byte reads) and prices k exactly; __reduce_min_sync on
+//    (cost << 5 | k) is the first least cost and the block's bit count;
+//  * byte offsets by decoupled look-back: a tile takes its id from a
+//    global ticket (so it only ever waits on tiles that started before
+//    it), publishes its byte count as one 64-bit status word (flag in the
+//    top two bits) with release semantics as soon as its blocks are
+//    priced, and, once packed, sums its predecessors' words, 32 at a
+//    time, read with acquire semantics (a look-back per Rice block
+//    instead, with no block barrier, measured 0.09 ms slower, and a
+//    ninth warp looking back while the others pack no faster: PERF.md);
+//  * a lane's 8 codes go into a 64-bit accumulator that hands out whole
+//    32-bit words, OR-ed into the warp's staged words (only a lane's
+//    first and last word can be shared with its neighbours);
+//  * each warp writes exactly its block's bytes: bytes up to a 4-byte
+//    boundary, then words, then a tail, so no word is read back or
+//    shared with a neighbouring block; the same kernel writes each
+//    band's first byte offset (and the total) as int64, each block's
+//    byte length as uint16 and its k as uint8, into one table buffer.
+//
+// Bound: memory.  The encode must read 4 bytes per coefficient and write
+// the coded bytes and 3 table bytes per block once; this kernel moves
+// exactly those (plus a status word per tile).  The least integer work in
+// the bit-length form is about 10 operations per coefficient (zigzag,
+// bit length, its bin entry and the code's two parts, each a few
+// operations: RICE_OPS in chip_smoke.py), under half the byte bound at
+// the card's INT32 rate.  This kernel issues several times that: its
+// bins, its packing and its look-back each add about as much time as its
+// loads take (tools/rice_anatomy.py), so it runs at a quarter of the
+// byte bound.
 //
 // rice_decode has no TPU kernel: the reference decodes with a 256-step
 // lax.scan of gathers (_decode_chunk).  Here one thread walks one Rice
@@ -20,18 +53,13 @@
 // the block's own byte range only (bytes past it read as zero, as the
 // reference's zero-padded rows do), so even a malformed stream never
 // reads outside the payload.  A warp decodes 32 blocks into shared
-// memory, then writes them out coalesced.
+// memory, then writes them out coalesced.  Decode must read the coded
+// bytes and write 4 bytes per coefficient; one thread per block reads its
+// bytes one at a time, so decode is latency-bound at first.
 //
-// Bound: memory.  Encode must read 4 bytes per coefficient and write the
-// coded bytes; this design also writes each block's padded 1280-byte row
-// and reads it back in the compaction (a later PR can size the rows first
-// and write at the offsets).  Decode must read the coded bytes and write
-// 4 bytes per coefficient; one thread per block reads its bytes one at a
-// time, so decode is latency-bound at first.
-//
-// Every function is written for any blockDim (loops strided by
-// blockDim.x, barriers between phases), which is what lets it be checked
-// off the card as host code with one thread per block.
+// The per-lane arithmetic (zigzag, bins, costs, code parts, the bit run,
+// the byte windows) is __host__ __device__, so it can be checked off the
+// card as host code.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -41,122 +69,311 @@ constexpr int kBlock = 256;                  // BLOCK_VALUES
 constexpr int kQMax = 8;                     // Q_MAX
 constexpr int kKMax = 24;                    // K_MAX
 constexpr int kLMax = kQMax + 32;            // LMAX: an escape's length
-constexpr int kWords = kBlock * kLMax / 32;  // 320 words of block workspace
-constexpr int kRowBytes = kWords * 4;        // BYTES_CAP
-constexpr int kThreads = 256;
-constexpr int kSegs = 8;                     // partial sums per k in the cost scan
+constexpr int kWords = kBlock * kLMax / 32;  // 320 words: a block's longest stream
+constexpr int kLanes = 32;
+constexpr int kPerLane = kBlock / kLanes;    // 8 values per lane
+constexpr int kBins = kKMax + 5;             // bit lengths 0..27, and one bin for >= 28
+constexpr int kWarps = 8;                    // Rice blocks per tile, one warp each
 constexpr int kDecodeBlocks = 32;            // Rice blocks per decode block
 
-__device__ __forceinline__ uint32_t zigzag(int32_t x) {
+// a tile's status word: flag in the top two bits, a byte count below
+constexpr uint64_t kAggregate = uint64_t{1} << 62;  // the tile's own bytes
+constexpr uint64_t kInclusive = uint64_t{2} << 62;  // the bytes of it and all before it
+constexpr uint64_t kCountMask = kAggregate - 1u;
+
+static_assert(kBins * kLanes >= kWords + 1, "a warp's bins also hold its staged words");
+
+__host__ __device__ __forceinline__ uint32_t zigzag(int32_t x) {
   return (static_cast<uint32_t>(x) << 1) ^ static_cast<uint32_t>(x >> 31);
 }
 
-__device__ __forceinline__ int code_len(uint32_t u, int k) {
+// Bit length of u: 0 for 0, 32 from 2^31 up.
+__host__ __device__ __forceinline__ int bit_length(uint32_t u) {
+#ifdef __CUDA_ARCH__
+  return 32 - __clz(u);
+#else
+  return u ? 32 - __builtin_clz(u) : 0;
+#endif
+}
+
+__host__ __device__ __forceinline__ int bin_of(int b) { return b < kBins - 1 ? b : kBins - 1; }
+
+// One value's entry in its bin: a count of 1 (bits 0-8), t1 (bits 9-17)
+// and 2 t1 + t2 (bits 18-27), t1 and t2 the two bits below the value's
+// top bit.  With b its bit length, u >> k is 1 at k = b - 1, 2 + t1 at
+// k = b - 2 and 4 + 2 t1 + t2 at k = b - 3.  Summed over a block's 256
+// values no field overflows into the next (256, 256, 768).
+__host__ __device__ __forceinline__ uint32_t bin_entry(uint32_t u, int b) {
+  const uint32_t t1 = b >= 2 ? (u >> (b - 2)) & 1u : 0u;
+  const uint32_t t12 = b >= 3 ? (u >> (b - 3)) & 3u : 0u;
+  return 1u | (t1 << 9) | (t12 << 18);
+}
+
+// The exact cost in bits of a block at parameter k: ge4 values of bit
+// length >= k + 4 escape (40 bits each), the others cost 1 + k plus
+// their quotient, which only the bins of bit length k + 1, k + 2 and
+// k + 3 (p1, p2, p3) make nonzero.
+__host__ __device__ __forceinline__ uint32_t block_cost(int k, uint32_t ge4, uint32_t p1,
+                                                        uint32_t p2, uint32_t p3) {
+  const uint32_t quot = (p1 & 511u) + 2u * (p2 & 511u) + ((p2 >> 9) & 511u) +
+                        4u * (p3 & 511u) + (p3 >> 18);
+  return kLMax * ge4 + (1u + k) * (kBlock - ge4) + quot;
+}
+
+// A value's code at parameter k, MSB first, as at most two parts of at
+// most 32 bits each: q ones, a zero and the k remainder bits (q + 1 + k
+// <= 32 bits; lo_len 0); or, when q >= Q_MAX, Q_MAX ones, then the raw
+// 32 bits.
+struct CodeParts {
+  uint32_t hi, lo;
+  int hi_len, lo_len;
+};
+
+__host__ __device__ __forceinline__ CodeParts code_parts(uint32_t u, int k) {
   const uint32_t q = u >> k;
-  return q >= static_cast<uint32_t>(kQMax) ? kLMax : static_cast<int>(q) + 1 + k;
+  if (q >= static_cast<uint32_t>(kQMax)) return {(1u << kQMax) - 1u, u, kQMax, 32};
+  return {(((1u << q) - 1u) << (k + 1)) | (u & ((1u << k) - 1u)), 0u, static_cast<int>(q) + 1 + k,
+          0};
 }
 
-// The low 32 bits of v shifted left by d, or right by -d when d < 0.
-__device__ __forceinline__ uint32_t shifted(uint64_t v, int d) {
-  if (d >= 64 || d <= -64) return 0u;
-  return static_cast<uint32_t>(d >= 0 ? v << d : v >> -d);
-}
+// Codes appended MSB first from bit `start` of a block's stream; each
+// 32-bit word of the stream is handed to flush(word index, bits) once it
+// is full, and the last, partial one by finish().  The first word holds
+// the bits before `start` as zeros.
+struct BitRun {
+  uint64_t acc;  // the pending `fill` bits, right-aligned (bits above them are spent)
+  int fill, word;
 
-// One thread block per Rice block of 256 values.
-__global__ void __launch_bounds__(kThreads)
-    encode_kernel(const int32_t* __restrict__ x, uint8_t* __restrict__ rows,
-                  uint8_t* __restrict__ ks, int32_t* __restrict__ nbits, int64_t count) {
-  __shared__ uint32_t u[kBlock];
-  __shared__ int lens[kBlock];
-  __shared__ int scan[2][kBlock];
-  __shared__ int part[kKMax + 1][kSegs];
-  __shared__ uint32_t words[kWords];
-  __shared__ int kbest;
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kBlock;
+  __host__ __device__ explicit BitRun(int start) : acc(0), fill(start & 31), word(start >> 5) {}
 
-  // zigzag; the values past the band's end are the last block's zero pad
-  for (int i = threadIdx.x; i < kBlock; i += blockDim.x)
-    u[i] = base + i < count ? zigzag(x[base + i]) : 0u;
-  for (int w = threadIdx.x; w < kWords; w += blockDim.x) words[w] = 0u;
-  __syncthreads();
-
-  // exact cost of every k: (K_MAX + 1) x kSegs partial sums, then the
-  // first minimum in k order
-  for (int t = threadIdx.x; t < (kKMax + 1) * kSegs; t += blockDim.x) {
-    const int k = t / kSegs, seg = t % kSegs;
-    int c = 0;
-    for (int i = seg * (kBlock / kSegs); i < (seg + 1) * (kBlock / kSegs); ++i)
-      c += code_len(u[i], k);
-    part[k][seg] = c;
+  template <class Flush>
+  __host__ __device__ __forceinline__ void put(uint32_t v, int len, Flush& flush) {
+    acc = (acc << len) | v;  // fill <= 31 and len <= 32: the pending bits fit in 63
+    fill += len;
+    if (fill >= 32) {
+      fill -= 32;
+      flush(word++, static_cast<uint32_t>(acc >> fill));
+    }
   }
+
+  template <class Flush>
+  __host__ __device__ __forceinline__ void finish(Flush& flush) {
+    if (fill) flush(word, static_cast<uint32_t>(acc << (32 - fill)));
+  }
+};
+
+// Stream byte i of MSB-first words s.
+__host__ __device__ __forceinline__ uint32_t stream_byte(const uint32_t* s, int i) {
+  return (s[i >> 2] >> (24 - 8 * (i & 3))) & 0xFFu;
+}
+
+// Stream bytes i..i+3 of MSB-first words s as they lie in memory from
+// an aligned address (byte i lowest).
+__host__ __device__ __forceinline__ uint32_t stream_word(const uint32_t* s, int i) {
+  const uint64_t pair = (static_cast<uint64_t>(s[i >> 2]) << 32) | s[(i >> 2) + 1];
+  const uint32_t be = static_cast<uint32_t>(pair >> (32 - 8 * (i & 3)));
+#ifdef __CUDA_ARCH__
+  return __byte_perm(be, 0u, 0x0123);
+#else
+  return __builtin_bswap32(be);
+#endif
+}
+
+// A tile's status word, stored with release and loaded with acquire
+// semantics at device scope.
+__host__ __device__ __forceinline__ void publish(unsigned long long* p, uint64_t v) {
+#ifdef __CUDA_ARCH__
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+#else
+  __atomic_store_n(p, v, __ATOMIC_RELEASE);
+#endif
+}
+
+__host__ __device__ __forceinline__ uint64_t peek(const unsigned long long* p) {
+#ifdef __CUDA_ARCH__
+  uint64_t v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+#else
+  return __atomic_load_n(p, __ATOMIC_ACQUIRE);
+#endif
+}
+
+// The bands' table: first block of each band and the total (nbands + 1),
+// then each band's data address, then its value count.  Tables out:
+// int64 first byte offset of each band and the total (nbands + 1), then
+// uint16 byte length of each block, then uint8 k of each block.
+// status: one word per tile, zeroed; ticket: zeroed.
+__global__ void __launch_bounds__(kWarps * kLanes)
+    encode_kernel(const int64_t* __restrict__ bands, int nbands, int64_t nblocks,
+                  uint8_t* __restrict__ payload, uint8_t* __restrict__ tables,
+                  unsigned long long* __restrict__ status, unsigned int* __restrict__ ticket) {
+  __shared__ __align__(16) uint32_t bins[kWarps][kBins * kLanes];  // per warp: bins, then staged words
+  __shared__ uint32_t block_len[kWarps];
+  __shared__ int64_t tile, tile_base;
+  const int lane = threadIdx.x & (kLanes - 1), warp = threadIdx.x / kLanes;
+  if (threadIdx.x == 0) tile = atomicAdd(ticket, 1u);
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int best = 0, best_cost = 0;
-    for (int k = 0; k <= kKMax; ++k) {
-      int c = 0;
-      for (int s = 0; s < kSegs; ++s) c += part[k][s];
-      if (k == 0 || c < best_cost) {  // strictly smaller: ties keep the first k
-        best = k;
-        best_cost = c;
+  const int64_t g = tile * kWarps + warp;  // this warp's Rice block
+  const bool live = g < nblocks;           // warp-uniform
+  uint32_t* sw = bins[warp];
+  uint4* sw4 = reinterpret_cast<uint4*>(sw);
+  const int64_t* firsts = bands;
+  const int64_t* addrs = bands + nbands + 1;
+  const int64_t* counts = addrs + nbands;
+
+  int band = 0, k = 0;
+  uint32_t nbytes = 0, u[kPerLane];
+  if (live) {
+    int lo = 0, hi = nbands - 1;  // the last band whose first block is <= g
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (firsts[mid] <= g) lo = mid; else hi = mid - 1;
+    }
+    band = lo;
+    const int64_t at = (g - firsts[band]) * kBlock + lane * kPerLane;
+    const int32_t* src = reinterpret_cast<const int32_t*>(addrs[band]) + at;
+    const int64_t left = counts[band] - at;  // this lane's values still in the band
+    if (left >= kPerLane && (addrs[band] & 15) == 0) {
+      const int4 a = __ldg(reinterpret_cast<const int4*>(src));
+      const int4 b = __ldg(reinterpret_cast<const int4*>(src) + 1);
+      u[0] = zigzag(a.x); u[1] = zigzag(a.y); u[2] = zigzag(a.z); u[3] = zigzag(a.w);
+      u[4] = zigzag(b.x); u[5] = zigzag(b.y); u[6] = zigzag(b.z); u[7] = zigzag(b.w);
+    } else {  // the band's last block codes its zero pad as values
+#pragma unroll
+      for (int j = 0; j < kPerLane; ++j) u[j] = j < left ? zigzag(__ldg(src + j)) : 0u;
+    }
+
+    // each lane's column of bins; then lane t < kBins sums bin t across
+    // the columns, 16 bytes at a time (rotated: a quarter warp's 8 lanes
+    // hit 32 banks)
+    for (int i = lane; i < kBins * kLanes / 4; i += kLanes) sw4[i] = make_uint4(0u, 0u, 0u, 0u);
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j) {
+      const int b = bit_length(u[j]);
+      sw[bin_of(b) * kLanes + lane] += bin_entry(u[j], b);
+    }
+    __syncwarp();
+    uint32_t bin = 0;
+    if (lane < kBins) {
+#pragma unroll
+      for (int i = 0; i < kLanes / 4; ++i) {
+        const uint4 v = sw4[lane * (kLanes / 4) + ((i + lane) & (kLanes / 4 - 1))];
+        bin += v.x + v.y + v.z + v.w;
       }
     }
-    kbest = best;
-  }
-  __syncthreads();
-  const int k = kbest;
 
-  // code lengths and their inclusive prefix sum (Hillis-Steele)
-  for (int i = threadIdx.x; i < kBlock; i += blockDim.x) {
-    lens[i] = code_len(u[i], k);
-    scan[0][i] = lens[i];
-  }
-  __syncthreads();
-  int src = 0;
-  for (int d = 1; d < kBlock; d <<= 1) {
-    for (int i = threadIdx.x; i < kBlock; i += blockDim.x)
-      scan[src ^ 1][i] = scan[src][i] + (i >= d ? scan[src][i - d] : 0);
-    __syncthreads();
-    src ^= 1;
-  }
-
-  // each code, right-aligned in 64 bits, OR-ed into the (up to three)
-  // words its bit range [off, off + len) covers, MSB first
-  for (int i = threadIdx.x; i < kBlock; i += blockDim.x) {
-    const int len = lens[i];
-    const int off = scan[src][i] - len;
-    const uint32_t ui = u[i];
-    uint64_t code;
-    if (len == kLMax) {  // escape: Q_MAX ones, then the raw 32 bits
-      code = (static_cast<uint64_t>((1u << kQMax) - 1u) << 32) | ui;
-    } else {  // q ones, a zero, then the k remainder bits
-      const uint32_t q = ui >> k;
-      code = ((((uint64_t{1} << q) - 1u) << (1 + k)) | (ui & ((1u << k) - 1u)));
+    // values of bit length >= lane (a suffix sum of the counts), then
+    // lane k prices k; the least (cost << 5 | k) is the first least cost
+    uint32_t ge = bin & 511u;
+#pragma unroll
+    for (int d = 1; d < kLanes; d <<= 1) {
+      const uint32_t v = __shfl_down_sync(~0u, ge, d);
+      if (lane + d < kLanes) ge += v;
     }
-    const int w0 = off >> 5, s = off & 31;
-    for (int j = 0; j < 3 && w0 + j < kWords; ++j) {
-      const uint32_t bits = shifted(code, 32 * (j + 1) - s - len);
-      if (bits) atomicOr(&words[w0 + j], bits);
+    const uint32_t ge4 = __shfl_down_sync(~0u, ge, 4);
+    const uint32_t p1 = __shfl_down_sync(~0u, bin, 1);
+    const uint32_t p2 = __shfl_down_sync(~0u, bin, 2);
+    const uint32_t p3 = __shfl_down_sync(~0u, bin, 3);
+    const uint32_t key = lane <= kKMax ? (block_cost(lane, ge4, p1, p2, p3) << 5) | lane : ~0u;
+    const uint32_t best = __reduce_min_sync(~0u, key);
+    k = static_cast<int>(best & 31u);
+    nbytes = ((best >> 5) + 7u) >> 3;
+  }
+
+  // the tile's byte count, published before packing for the tiles after
+  // it to sum; each block's offset in the tile
+  if (lane == 0) block_len[warp] = nbytes;
+  __syncthreads();
+  uint32_t off = 0, agg = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const uint32_t n = block_len[w];
+    off += w < warp ? n : 0u;
+    agg += n;
+  }
+  if (threadIdx.x == 0) publish(status + tile, (tile == 0 ? kInclusive : kAggregate) | agg);
+
+  if (live) {
+    // this lane's code lengths and its bit offset in the block's stream
+    int len = 0;
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j) {
+      const uint32_t q = u[j] >> k;
+      len += q >= static_cast<uint32_t>(kQMax) ? kLMax : static_cast<int>(q) + 1 + k;
     }
+    int incl = len;
+#pragma unroll
+    for (int d = 1; d < kLanes; d <<= 1) {
+      const int v = __shfl_up_sync(~0u, incl, d);
+      if (lane >= d) incl += v;
+    }
+    __syncwarp();  // every lane has read the bins: their space stages the words
+    for (int i = lane; i < (kWords + 4) / 4; i += kLanes) sw4[i] = make_uint4(0u, 0u, 0u, 0u);
+    __syncwarp();
+    auto flush = [sw](int w, uint32_t bits) {
+      if (bits) atomicOr(&sw[w], bits);
+    };
+    BitRun run(incl - len);
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j) {
+      const CodeParts c = code_parts(u[j], k);
+      run.put(c.hi, c.hi_len, flush);
+      if (c.lo_len) run.put(c.lo, c.lo_len, flush);
+    }
+    run.finish(flush);
+  }
+
+  // the tile's offset in the payload: the byte counts of every tile
+  // before it, by decoupled look-back (lane i reads tile at - i)
+  if (warp == 0) {
+    uint64_t prefix = 0;
+    if (tile > 0) {
+      int64_t at = tile - 1;
+      for (;;) {
+        const int64_t idx = at - lane;
+        const uint64_t s = idx >= 0 ? peek(status + idx) : kInclusive;
+        const uint32_t incl_lanes = __ballot_sync(~0u, (s >> 62) == 2u);
+        // the lanes that count: up to and including the first inclusive one
+        const uint32_t need = incl_lanes ? incl_lanes ^ (incl_lanes - 1u) : ~0u;
+        if (__ballot_sync(~0u, (s >> 62) == 0u) & need) {  // a tile still pricing
+          __nanosleep(32);
+          continue;
+        }
+        uint64_t v = ((need >> lane) & 1u) ? (s & kCountMask) : uint64_t{0};
+#pragma unroll
+        for (int d = kLanes / 2; d; d >>= 1) v += __shfl_down_sync(~0u, v, d);
+        prefix += __shfl_sync(~0u, v, 0);
+        if (incl_lanes) break;
+        at -= kLanes;
+      }
+      if (lane == 0) publish(status + tile, kInclusive | (prefix + agg));
+    }
+    if (lane == 0) tile_base = static_cast<int64_t>(prefix);
   }
   __syncthreads();
+  if (!live) return;
 
-  // the whole row, word w as bytes 4w..4w+3 from its most significant
-  uint32_t* row = reinterpret_cast<uint32_t*>(rows + static_cast<int64_t>(blockIdx.x) * kRowBytes);
-  for (int w = threadIdx.x; w < kWords; w += blockDim.x) row[w] = __byte_perm(words[w], 0u, 0x0123);
-  if (threadIdx.x == 0) {
-    ks[blockIdx.x] = static_cast<uint8_t>(k);
-    nbits[blockIdx.x] = scan[src][kBlock - 1];
+  const int64_t dst = tile_base + off;
+  if (lane == 0) {
+    int64_t* band_off = reinterpret_cast<int64_t*>(tables);
+    uint16_t* lens = reinterpret_cast<uint16_t*>(tables + 8 * (nbands + 1));
+    uint8_t* ks = tables + 8 * (nbands + 1) + 2 * nblocks;
+    lens[g] = static_cast<uint16_t>(nbytes);
+    ks[g] = static_cast<uint8_t>(k);
+    if (g == firsts[band]) band_off[band] = dst;
+    if (g == nblocks - 1) band_off[nbands] = dst + nbytes;
   }
-}
-
-// Block b's ceil(nbits[b] / 8) row bytes to payload[offs[b]:].
-__global__ void compact_kernel(const uint8_t* __restrict__ rows, const int32_t* __restrict__ nbits,
-                               const int64_t* __restrict__ offs, uint8_t* __restrict__ payload) {
-  const int64_t b = blockIdx.x;
-  const int n = (nbits[b] + 7) >> 3;
-  const uint8_t* src = rows + b * kRowBytes;
-  uint8_t* dst = payload + offs[b];
-  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+  uint8_t* out = payload + dst;
+  const int n = static_cast<int>(nbytes);
+  const int head = min(static_cast<int>((4 - (dst & 3)) & 3), n);
+  if (lane < head) out[lane] = static_cast<uint8_t>(stream_byte(sw, lane));
+  const int words = (n - head) >> 2;
+  uint32_t* outw = reinterpret_cast<uint32_t*>(out + head);
+  for (int m = lane; m < words; m += kLanes) outw[m] = stream_word(sw, head + 4 * m);
+  const int tail = head + 4 * words;
+  if (lane < n - tail) out[tail + lane] = static_cast<uint8_t>(stream_byte(sw, tail + lane));
 }
 
 // kDecodeBlocks Rice blocks per thread block, one thread each.
@@ -209,28 +426,37 @@ extern "C" const char* repro_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// x: `count` int32 values (nb = ceil(count / 256) blocks); rows: nb x
-// BYTES_CAP bytes; ks: nb uint8; nbits: nb int32.  Returns a cudaError_t.
-extern "C" int repro_rice_encode(int device, const int32_t* x, uint8_t* rows, uint8_t* ks,
-                                 int32_t* nbits, int64_t count, int64_t nb, void* stream) {
+// Codes `nblocks` Rice blocks of the bands that `table` (host memory,
+// table_len int64: see encode_kernel) describes, in one launch.
+// payload: nblocks x BYTES_CAP bytes (the worst case); tables: 8 x
+// (nbands + 1) + 3 x nblocks bytes; work: nblocks + 1 + table_len int64
+// (the tiles' status words, nblocks of room; the ticket; the table on
+// the card).
+// Returns a cudaError_t.
+extern "C" int repro_rice_encode(int device, uint8_t* payload, uint8_t* tables, int64_t* work,
+                                 int64_t nblocks, const int64_t* table, int table_len,
+                                 void* stream) {
   cudaError_t e;
   if ((e = cudaSetDevice(device)) != cudaSuccess) return e;
-  if (nb < 1 || nb > 0x7fffffff || (nb - 1) * kBlock >= count || nb * kBlock < count)
+  const int nbands = (table_len - 1) / 3;
+  const int64_t tiles = (nblocks + kWarps - 1) / kWarps;
+  if (nblocks < 1 || nbands < 1 || table_len != 3 * nbands + 1 || tiles > 0x7fffffff)
     return cudaErrorInvalidValue;
-  encode_kernel<<<static_cast<unsigned>(nb), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, rows, ks, nbits, count);
-  return cudaGetLastError();
-}
-
-// Compacts the nb rows of repro_rice_encode to `payload` at `offs`.
-extern "C" int repro_rice_compact(int device, const uint8_t* rows, const int32_t* nbits,
-                                  const int64_t* offs, uint8_t* payload, int64_t nb,
-                                  void* stream) {
-  cudaError_t e;
-  if ((e = cudaSetDevice(device)) != cudaSuccess) return e;
-  if (nb < 1 || nb > 0x7fffffff) return cudaErrorInvalidValue;
-  compact_kernel<<<static_cast<unsigned>(nb), 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      rows, nbits, offs, payload);
+  // every band holds >= 1 value and exactly its blocks, in order
+  if (table[0] != 0 || table[nbands] != nblocks) return cudaErrorInvalidValue;
+  for (int i = 0; i < nbands; ++i) {
+    const int64_t count = table[2 * nbands + 1 + i];
+    if (count < 1 || table[i + 1] - table[i] != (count + kBlock - 1) / kBlock)
+      return cudaErrorInvalidValue;
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((e = cudaMemsetAsync(work, 0, (nblocks + 1) * sizeof(int64_t), s)) != cudaSuccess) return e;
+  if ((e = cudaMemcpyAsync(work + nblocks + 1, table, table_len * sizeof(int64_t),
+                           cudaMemcpyHostToDevice, s)) != cudaSuccess)
+    return e;
+  encode_kernel<<<static_cast<unsigned>(tiles), kWarps * kLanes, 0, s>>>(
+      work + nblocks + 1, nbands, nblocks, payload, tables,
+      reinterpret_cast<unsigned long long*>(work), reinterpret_cast<unsigned int*>(work + nblocks));
   return cudaGetLastError();
 }
 

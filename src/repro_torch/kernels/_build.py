@@ -59,8 +59,7 @@ _SIGNATURES = {
         "repro_tiled_inv": [_I] + [_P] * 5 + [_I] * 6 + [_P, _I, _P],
     },
     "rice": {
-        "repro_rice_encode": [_I] + [_P] * 4 + [_L, _L, _P],
-        "repro_rice_compact": [_I] + [_P] * 4 + [_L, _P],
+        "repro_rice_encode": [_I] + [_P] * 3 + [_L, _P, _I, _P],
         "repro_rice_decode": [_I] + [_P] * 5 + [_L, _P],
     },
     "lift1d": {

@@ -181,26 +181,50 @@ def _rice_bands(rng):
     }
 
 
+def _check_rice_decode(coded, x, dev):
+    """Decode one band's coding with the kernel and the plain version:
+    both must give back the input exactly."""
+    out = TR.decode_band(*coded, x.numel(), device=dev)
+    assert torch.equal(out, x)
+    if x.numel():
+        plain = TR.decode_band_plain(coded[0], coded[1].astype(np.int64),
+                                     coded[2].astype(np.int64), x.numel(), device=dev)
+        assert torch.equal(plain[: x.numel()], x)
+
+
 @pytest.mark.cuda
 def test_cuda_rice_kernels_match_plain_versions(cuda_device):
     rng = np.random.default_rng(10)
-    for name, vals in _rice_bands(rng).items():
-        x = torch.from_numpy(np.asarray(vals).astype(np.int32)).to(cuda_device)
-        rows, ks, nbits = TR.rice_encode_cuda(x)
-        by, want_nbits, want_k = TR._encode_chunk(TR._blocks(x))
-        assert torch.equal(rows, by) and torch.equal(nbits, want_nbits), name
-        assert torch.equal(ks.to(torch.int32), want_k), name
-        got = TR.encode_band(x)
+    bands = {name: torch.from_numpy(np.asarray(vals).astype(np.int32)).to(cuda_device)
+             for name, vals in _rice_bands(rng).items()}
+    for name, x in bands.items():
         want = TR.encode_band_plain(x.cpu())
+        payload, tables = TR.rice_encode_cuda([x])
+        offs, ks, lens = TR.tables_to_host(tables, 1)
+        assert list(offs) == [0, len(want[0])], name
+        assert payload[: offs[-1]].cpu().numpy().tobytes() == want[0], name
+        assert np.array_equal(ks, want[1]) and np.array_equal(lens, want[2]), name
+        got = TR.encode_band(x)
         assert got[0] == want[0], name
         assert np.array_equal(got[1], want[1]) and np.array_equal(got[2], want[2]), name
-        out = TR.decode_band(*got, x.numel(), device=cuda_device)
-        assert torch.equal(out, x), name
-        plain = TR.decode_band_plain(got[0], got[1].astype(np.int64), got[2].astype(np.int64),
-                                     x.numel(), device=cuda_device)[: x.numel()]
-        assert torch.equal(out, plain), name
+        _check_rice_decode(got, x, cuda_device)
+    # every band at once, with empty bands among them: one launch
+    listed = [torch.zeros(0, dtype=torch.int32, device=cuda_device)] + list(bands.values())
+    listed.insert(4, listed[0])
+    TK.launches.reset()
+    got = TR.encode_bands(listed)
+    assert TK.launches.snapshot() == {"rice_encode": 1}
+    for g, x in zip(got, listed):
+        want = TR.encode_band_plain(x.cpu())
+        assert g[0] == want[0]
+        assert np.array_equal(g[1], want[1]) and np.array_equal(g[2], want[2])
+        _check_rice_decode(g, x, cuda_device)
+    TK.launches.reset()
     empty = torch.zeros(0, dtype=torch.int32, device=cuda_device)
     assert TR.encode_band(empty)[0] == b""  # no block: no launch
+    coded = TR.encode_bands([empty, empty])
+    assert [c[0] for c in coded] == [b"", b""] and all(c[1].size == c[2].size == 0 for c in coded)
+    assert TK.launches.snapshot().get("rice_encode", 0) == 0
     assert TR.decode_band(b"", np.zeros(0, np.uint8), np.zeros(0, np.uint16), 0,
                           device=cuda_device).numel() == 0
     torch.cuda.synchronize(cuda_device)
@@ -220,7 +244,7 @@ def test_cuda_encoded_engine_serves_what_the_cpu_engine_serves(cuda_device):
         done = eng.run([TransformRequest(uid=i, image=im) for i, im in enumerate(images)])
         out[dev] = sorted(done, key=lambda r: r.uid)
     assert TK.launches.snapshot().get("rice_encode", 0) > 0
-    assert TK.launches.snapshot().get("rice_compact", 0) > 0
+    assert "rice_compact" not in TK.launches.snapshot()
     route = ProgressiveServeRoute(device=cuda_device)
     for c, g in zip(out["cpu"], out["cuda"]):
         assert g.error is None and g.encoded == c.encoded and g.batch_index == c.batch_index

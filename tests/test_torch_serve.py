@@ -320,7 +320,7 @@ _ASYNC_FAULT = "CUDA error: an illegal memory access was encountered"
 def test_kernel_faults_in_the_encode_propagate(monkeypatch, err):
     from repro_torch.codec import rice
 
-    def broken(x):
+    def broken(bands):
         raise err(_ASYNC_FAULT if err is RuntimeError else "rice kernel broke")
 
     # batch_fault: the batch encode degrades first, and the kernel fault
@@ -331,7 +331,7 @@ def test_kernel_faults_in_the_encode_propagate(monkeypatch, err):
         reqs = _requests(TSV, n=5)[::4]  # two 16x16 requests: one batch
         for r in reqs:
             eng.submit(r)
-        monkeypatch.setattr(rice, "encode_band", broken)
+        monkeypatch.setattr(rice, "encode_bands", broken)
         obs.reset()
         inject.reset()
         if batch_fault:
