@@ -60,11 +60,14 @@ Phases (any failure raises and the script exits nonzero):
    tensor.  Then the results are held against the plain versions: the
    pyramids and the container and stream bytes must be equal, every
    reconstruction the input.
-7. 3-D parity: the whole-volume kernels (``whole3d.cu``: one block per
-   volume, or three passes through device memory past one block) and the
-   depth-slab kernels (``slab3d.cu``) against their plain versions with
-   ``torch.equal``: 4 schemes x 2 modes, shapes (2, 2, 2) to
-   (33, 130, 129), int32 extremes, slabs of depth 2, 4 and the picked
+7. 3-D parity: the whole-volume kernels (``whole3d.cu``: one cluster of
+   1-16 blocks per volume, or three passes through device memory where no
+   cluster holds it) and the depth-slab kernels (``slab3d.cu``) against
+   their plain versions with ``torch.equal``: 4 schemes x 2 modes, shapes
+   (2, 2, 2) to (33, 130, 129) and (17, 256, 256), int32 extremes, the
+   whole-volume kernels at the geometry's cluster size, forced to the
+   three passes and to every other cluster size the shape admits (shapes
+   whose geometry picks each size), slabs of depth 2, 4 and the picked
    depth, lines too long for shared memory; shapes that force each
    branch of the slab level's plane pass (H of 2, 3 and 5, odd H and W,
    W % 8 == 0, several strips of rows, haar at odd H and rows too wide
@@ -75,7 +78,8 @@ Phases (any failure raises and the script exits nonzero):
    and a guard counting plain-version calls on CUDA tensors: one
    (64, 512, 512) CT-like 12-bit volume (the repo's ``SHAPE_3D_LARGE``)
    through ``kernels.dwt_fwd_nd`` / ``dwt_inv_nd``, 4 levels, cdf53 /
-   jpeg2000 (slabs, then one block) and cdf22 / paper (three passes),
+   jpeg2000 (slabs, then one cluster a volume) and cdf22 / paper (three
+   passes, then clusters),
    checked and not; over-range 97m inputs must raise; a 3-D serve engine
    with buckets (16, 256, 256) and (64, 512, 512), 4 slots, 4 levels,
    serving 8 volumes (a quarter undersized) plain and with
@@ -92,11 +96,14 @@ Phases (any failure raises and the script exits nonzero):
    a row, each payload byte-equal to the first and to the plain encode; 4 levels at (a) 64 x 65,536, (b) 1024 x
    65,536 and (c) one line of 11,534,336 samples for the 1-D kernels, the
    cdf22 row pass at (a) and (c); the 4 levels of one 4 x (64, 512, 512)
-   batch for the 3-D kernels, and the three-pass whole-volume path at its
+   batch for the 3-D kernels, and the whole-volume kernels also at every
+   other level the 3-D path gives them ((16, 256, 256) bucket levels 3-4,
+   a WZRS slab's level 3), at cdf22's level 3 and at the three-pass
    level 1 in cdf22), beside its plain version and its bound, comparing
    outputs once more; for each 2-D level its tile and the kernel's device
    ms, for each slab level which plane path ran and the device ms of each
-   kernel it launched (``torch.profiler``).
+   kernel it launched (``torch.profiler``), for each whole-volume level
+   its device ms, the host's us per wrapper call and the cluster size.
 10. Print the ``{"kernels": [...]}`` line, the card line, and last the
    ``{"ok": true, ...}`` line.  ``--json-out PATH`` also writes the whole
    record (every batch latency, every level's, band's and shape's time)
@@ -1161,16 +1168,33 @@ def parity_sweep_3d(rng, dev) -> dict:
     from repro_torch.kernels import backend as B
     from repro_torch.kernels import fused3d as F3
 
-    cases = {"whole3d": 0, "whole3d_multipass": 0, "slab3d": 0, "slab3d_plane_pass": 0,
-             "slab3d_row_col_passes": 0, "library": 0}
+    cases = {"whole3d": 0, "whole3d_multipass": 0, "whole3d_by_cluster": {}, "slab3d": 0,
+             "slab3d_plane_pass": 0, "slab3d_row_col_passes": 0, "library": 0}
+    by_cluster = cases["whole3d_by_cluster"]
 
     def check(label, xt, mode, name, tds):
+        """The whole-volume kernels at the geometry's cluster size, then
+        forced to the three passes and to every other cluster size the
+        shape admits; then the slab kernels."""
         want = F3.fwd3d_whole_plain(xt, mode, name)
-        _equal_or_raise("whole3d_fwd " + label, F3.fwd3d_whole_cuda(xt, mode, name), want)
-        _equal_or_raise("whole3d_inv " + label, [F3.inv3d_whole_cuda(want, mode, name)],
-                        [F3.inv3d_whole_plain(want, mode, name)])
-        fused = F3.volume_geometry(*xt.shape, dev)["fused"]
-        cases["whole3d" if fused else "whole3d_multipass"] += 1
+        back = F3.inv3d_whole_plain(want, mode, name)
+        bsz, d, h, w = xt.shape
+        picked = F3.volume_geometry(bsz, d, h, w, dev)["cluster"]
+        _equal_or_raise(f"whole3d_fwd {label}/c={picked}", F3.fwd3d_whole_cuda(xt, mode, name),
+                        want)
+        _equal_or_raise(f"whole3d_inv {label}/c={picked}",
+                        [F3.inv3d_whole_cuda(want, mode, name)], [back])
+        by_cluster[picked] = by_cluster.get(picked, 0) + 1
+        plans = [F3._whole_plan(bsz, d, h, w, S.get_scheme(name), mode, inverse, xt.device)
+                 for inverse in (False, True)]
+        for c in (0,) + F3.CLUSTER_SIZES:
+            if c == picked or (c and not F3.cluster_fits(d, h, w, c, dev)):
+                continue
+            fwd, inv = (F3._at_cluster(p, c) for p in plans)
+            _equal_or_raise(f"whole3d_fwd {label}/c={c}", F3._whole_fwd(xt, fwd), want)
+            _equal_or_raise(f"whole3d_inv {label}/c={c}", [F3._whole_inv(want, inv)], [back])
+            by_cluster[c] = by_cluster.get(c, 0) + 1
+        cases["whole3d" if picked else "whole3d_multipass"] += 1
         check_slab(label, xt, mode, name, tds, want)
 
     def check_slab(label, xt, mode, name, tds, want):
@@ -1187,11 +1211,14 @@ def parity_sweep_3d(rng, dev) -> dict:
     # the plane pass's branches: H of 2, 3 and 5 (windows taller than the
     # slice), odd H and W (4-byte copies), W % 8 == 0 (16-byte copies),
     # several strips of rows with a ragged last one (130, 101, 77 rows),
-    # haar at odd H (row and column passes)
+    # haar at odd H (row and column passes); the whole-volume geometry's
+    # cluster sizes 2, 4, 8 and 16 ((16, 4, 64), (16, 8, 64), (8, 16, 64),
+    # (8, 64, 64)) and a volume no cluster holds (17, 256, 256)
     shapes = [(2, 2, 2), (3, 5, 7), (5, 9, 7), (8, 16, 16), (17, 33, 31), (9, 64, 64),
               (12, 6, 5), (16, 64, 64), (33, 130, 129), (4, 2, 16), (6, 3, 8), (5, 5, 24),
               (7, 13, 40), (4, 20, 9), (8, 9, 16), (3, 101, 1000), (3, 77, 1001),
-              (4, 130, 512)]
+              (4, 130, 512), (16, 4, 64), (16, 8, 64), (8, 16, 64), (8, 64, 64),
+              (17, 256, 256)]
     for name in SCHEMES:
         sch = S.get_scheme(name)
         for mode in MODES:
@@ -1357,7 +1384,7 @@ def volume_paths(rng, dev) -> dict:
     obs.reset()
     ms, lib, raised, served = {}, {}, {}, {}
     with PlainGuard() as guard:
-        # the library: cdf53/jpeg2000 (slabs, then one block) and
+        # the library: cdf53/jpeg2000 (slabs, then one cluster) and
         # cdf22/paper (three passes at every level), checked and not
         for name, mode in ((VOL_SCHEME, VOL_MODE), ("cdf22", "paper")):
             for checked in (False, True):
@@ -1510,36 +1537,113 @@ def volume_paths(rng, dev) -> dict:
             "stream_bytes": len(data), "breakdown_ms": breakdown}
 
 
-def _pass_ms(fn, reps: int = 5) -> dict:
+def _pass_ms(fn, reps: int = 5, per_call: int | None = None, warm: int = 3,
+             tries: int = 3) -> dict:
     """Device ms of each kernel ``fn`` launches, per call, by kernel name
-    (``torch.profiler``); empty when the profiler records no device time."""
+    (``torch.profiler``).  The profiler on the card loses kernel records
+    now and then (two a profile, every time, late in this script's run),
+    so a total divided by the calls made under-counts.  One profile holds
+    ``warm + reps`` identical calls and is read from its last ``reps *
+    per_call`` kernel records by start time (``per_call``: the launches
+    one call makes, from the caller, else from the count); a profile with
+    fewer records is taken again, up to ``tries`` times, and then the
+    result is ``{"not measured": ...}``, never a short total."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-    except RuntimeError as e:  # a profiler that cannot trace the card: the event medians stand
-        return {"profiler unavailable": str(e)[:200]}
-    out = {}
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "cuda_time_total", 0)
-        if dev_us and ("kernel" in ev.key or "passes::" in ev.key):
-            out[ev.key.split("(")[0][:80]] = dev_us / 1e3 / reps
+    seen = []
+    for _ in range(tries):
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(warm + reps):
+                    fn()
+                torch.cuda.synchronize()
+        except RuntimeError as e:  # a profiler that cannot trace the card: the event medians stand
+            return {"profiler unavailable": str(e)[:200]}
+        recs = sorted((ev.time_range.start, ev.name, ev.time_range.elapsed_us())
+                      for ev in prof.events()
+                      if str(ev.device_type).endswith("CUDA")
+                      and ("kernel" in ev.name or "passes::" in ev.name))
+        seen.append(len(recs))
+        calls = per_call if per_call is not None else max(1, round(len(recs) / (warm + reps)))
+        if len(recs) >= reps * calls:
+            out = {}
+            for _, name, us in recs[len(recs) - reps * calls:]:
+                key = name.split("(")[0][:80]
+                out[key] = out.get(key, 0.0) + us / 1e3 / reps
+            return out
+    return {"not measured": f"kernel records seen {seen} of {warm + reps} calls, "
+                            f"want {reps} x {per_call or 'the launches a call makes'}"}
+
+
+def _device_ms(fn, per_call: int) -> float | None:
+    """Device ms per call of all the kernels ``fn`` launches (``per_call``
+    launches a call), None where the profiler gave too few records."""
+    ms = _pass_ms(fn, per_call=per_call)
+    return sum(ms.values()) if all(isinstance(v, float) for v in ms.values()) else None
+
+
+def _fmt_ms(v) -> str:
+    return f"{v:.4f}" if isinstance(v, float) else "not measured" if v is None else str(v)
+
+
+def _host_us(fn, dev, calls: int = 200) -> float:
+    """Host microseconds per call of ``fn``: calls enqueued back to back,
+    then one sync (the card idles behind the host at a small level)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize(dev)
+    return us
+
+
+# the whole-volume kernel's levels beside the volume's level 4: the
+# (16, 256, 256) bucket's levels 3-4, level 3 of a WZRS depth slab of 8,
+# and cdf22's level 3, which a cluster now holds
+WHOLE3D_LEVELS = (
+    ("bucket level 3", (VOL_SLOTS, 4, 64, 64), VOL_SCHEME, VOL_MODE),
+    ("bucket level 4", (VOL_SLOTS, 2, 32, 32), VOL_SCHEME, VOL_MODE),
+    ("stream level 3", (1, 2, 128, 128), VOL_SCHEME, VOL_MODE),
+    ("cdf22 level 3", (VOL_SLOTS, 16, 128, 128), "cdf22", "paper"),
+)
+
+
+def _whole3d_level(x, bands, scheme, mode, dev) -> dict:
+    """Both whole-volume wrappers at one level, each checked once more
+    against its plain version: events ms, device ms (``torch.profiler``),
+    host us per call, the plain version's ms and the cluster size."""
+    from repro_torch.kernels import fused3d as F3
+
+    out = {"shape": list(x.shape), "scheme": scheme,
+           "cluster": F3.volume_geometry(*x.shape, dev)["cluster"],
+           "bound_ms": 2 * x.numel() * 4 / PEAK_BYTES_PER_S * 1e3, "err": 0}
+    per_call = 1 if out["cluster"] else 3  # one cluster launch, or the three passes
+    for name, kern, plain in (
+        ("whole3d_fwd", lambda: F3.fwd3d_whole_cuda(x, mode, scheme),
+         lambda: F3.fwd3d_whole_plain(x, mode, scheme)),
+        ("whole3d_inv", lambda: [F3.inv3d_whole_cuda(bands, mode, scheme)],
+         lambda: [F3.inv3d_whole_plain(bands, mode, scheme)]),
+    ):
+        out["err"] = max(out["err"], _equal_or_raise(
+            f"{name} {scheme} {tuple(x.shape)}", kern(), plain()))
+        out[name] = {"ms": _median_ms(kern, 20), "device_ms": _device_ms(kern, per_call),
+                     "host_us": _host_us(kern, dev), "plain_ms": _median_ms(plain, 3)}
     return out
 
 
 def time_3d(rng, dev) -> list:
     """Phase 9, 3-D half: CUDA-event medians of each 3-D kernel over the 4 levels of
     one 4 x (64, 512, 512) batch (cdf53 / jpeg2000: slabs at levels 1-3,
-    one block per volume at level 4), beside its plain version and bound;
-    and the three-pass whole-volume path at level 1 (cdf22), recorded
-    apart."""
+    one cluster per volume at level 4), beside its plain version and
+    bound; then the whole-volume kernels at every other level the 3-D path
+    gives them, at cdf22's level 3 and at the three-pass level 1 (cdf22),
+    recorded apart, each with its device ms, host us per call and cluster
+    size."""
     from repro_torch.core import schemes as S
     from repro_torch.kernels import backend as B
     from repro_torch.kernels import fused3d as F3
@@ -1554,6 +1658,8 @@ def time_3d(rng, dev) -> list:
     for lv, (d, h, w) in enumerate(_shrink(VOLUME, VOL_LEVELS)):
         plan = F3.plan_3d(d, h, w, dev, VOL_SCHEME)
         bands = F3.fwd3d_whole_plain(x, VOL_MODE, VOL_SCHEME)
+        n = x.numel()
+        nbytes = 2 * n * 4  # read every sample once, write every band once
         if plan == "slab-cuda":
             td = B.pick_slab(d, h, w, sch.halo, dev)
             runs = {
@@ -1562,61 +1668,64 @@ def time_3d(rng, dev) -> list:
                 "slab3d_inv": (lambda: [F3.inv3d_slab_cuda(bands, VOL_MODE, td, VOL_SCHEME)],
                                lambda: [F3.inv3d_slab_plain(bands, VOL_MODE, td, VOL_SCHEME)]),
             }
+            for name, (kern, plain) in runs.items():
+                e = per[name]
+                err = _equal_or_raise(f"{name} {VOL_SLOTS}x{(d, h, w)}", kern(), plain())
+                ms = _median_ms(kern, 20)
+                pms = _median_ms(plain, 3)
+                g = F3.slab_geometry(VOL_SLOTS, d, h, w, td, VOL_SCHEME, name.endswith("inv"),
+                                     dev)
+                e["levels"].append({"shape": [VOL_SLOTS, d, h, w], "ms": ms, "plain_ms": pms,
+                                    "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "td": td,
+                                    "passes": g["passes"], "plane_rows": g["plane_rows"],
+                                    "pass_ms": _pass_ms(kern, per_call=g["passes"])})
+                e["ms"] += ms
+                e["plain_ms"] += pms
+                e["bytes"] += nbytes
+                e["ops"] += int(ops_per_sample * n)
+                e["err"] = max(e["err"], err)
         else:
-            runs = {
-                "whole3d_fwd": (lambda: F3.fwd3d_whole_cuda(x, VOL_MODE, VOL_SCHEME),
-                                lambda: F3.fwd3d_whole_plain(x, VOL_MODE, VOL_SCHEME)),
-                "whole3d_inv": (lambda: [F3.inv3d_whole_cuda(bands, VOL_MODE, VOL_SCHEME)],
-                                lambda: [F3.inv3d_whole_plain(bands, VOL_MODE, VOL_SCHEME)]),
-            }
-        n = x.numel()
-        for name, (kern, plain) in runs.items():
-            e = per[name]
-            err = _equal_or_raise(f"{name} {VOL_SLOTS}x{(d, h, w)}", kern(), plain())
-            ms = _median_ms(kern, 20)
-            pms = _median_ms(plain, 3)
-            nbytes = 2 * n * 4  # read every sample once, write every band once
-            e["ms"] += ms
-            e["plain_ms"] += pms
-            e["bytes"] += nbytes
-            e["ops"] += int(ops_per_sample * n)
-            e["err"] = max(e["err"], err)
-            lv = {"shape": [VOL_SLOTS, d, h, w], "ms": ms, "plain_ms": pms,
-                  "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3}
-            if name.startswith("slab3d"):
-                g = F3.slab_geometry(VOL_SLOTS, d, h, w, td, VOL_SCHEME, name.endswith("inv"), dev)
-                lv.update(td=td, passes=g["passes"], plane_rows=g["plane_rows"],
-                          pass_ms=_pass_ms(kern))
-            e["levels"].append(lv)
+            lvl = _whole3d_level(x, [b.contiguous() for b in bands], VOL_SCHEME, VOL_MODE, dev)
+            for name in ("whole3d_fwd", "whole3d_inv"):
+                e, t = per[name], lvl[name]
+                e["levels"].append({"shape": lvl["shape"], "cluster": lvl["cluster"],
+                                    "bound_ms": lvl["bound_ms"], **t})
+                e["ms"] += t["ms"]
+                e["plain_ms"] += t["plain_ms"]
+                e["bytes"] += nbytes
+                e["ops"] += int(ops_per_sample * n)
+                e["err"] = max(e["err"], lvl["err"])
         x = bands[0]
         del bands
-    # the three-pass whole-volume path at full width: cdf22 cannot slab
-    x = x0
-    bands = F3.fwd3d_whole_plain(x, "paper", "cdf22")
-    multipass = {}
-    for name, kern, plain in (
-        ("whole3d_fwd", lambda: F3.fwd3d_whole_cuda(x, "paper", "cdf22"),
-         lambda: F3.fwd3d_whole_plain(x, "paper", "cdf22")),
-        ("whole3d_inv", lambda: [F3.inv3d_whole_cuda(bands, "paper", "cdf22")],
-         lambda: [F3.inv3d_whole_plain(bands, "paper", "cdf22")]),
-    ):
-        err = _equal_or_raise(f"{name} cdf22 three-pass {tuple(x.shape)}", kern(), plain())
-        per[name]["err"] = max(per[name]["err"], err)
-        multipass[name] = {"shape": list(x.shape), "scheme": "cdf22", "ms": _median_ms(kern, 10),
-                           "plain_ms": _median_ms(plain, 3),
-                           "bound_ms": 2 * x.numel() * 4 / PEAK_BYTES_PER_S * 1e3}
-    del x0, x, bands
+    del x0, x
+    # the whole-volume kernels' other levels, and the three-pass level 1
+    # at full width (cdf22 cannot slab)
+    others = {}
+    for label, shape, scheme, mode in WHOLE3D_LEVELS + (
+            ("three-pass level 1", (VOL_SLOTS,) + VOLUME, "cdf22", "paper"),):
+        x = torch.from_numpy(rng.integers(CT12[0], CT12[1], shape, dtype=np.int32)).to(dev)
+        bands = [b.contiguous() for b in F3.fwd3d_whole_plain(x, mode, scheme)]
+        others[label] = _whole3d_level(x, bands, scheme, mode, dev)
+        for name in ("whole3d_fwd", "whole3d_inv"):
+            per[name]["err"] = max(per[name]["err"], others[label]["err"])
+        del x, bands
     torch.cuda.empty_cache()
     out = []
     for name, (source, replaces) in KERNELS_3D.items():
         e = per[name]
         bound_ms, bound_by = bound(e["bytes"], e["ops"])
-        out.append({
+        row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": 0, "max_abs_err": e["err"], "ms": e["ms"], "plain_ms": e["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "levels": e["levels"], "three_pass": multipass.get(name),
-        })
+            "levels": e["levels"], "other_levels": None,
+        }
+        if name.startswith("whole3d"):
+            row["other_levels"] = {
+                label: {"shape": lv["shape"], "scheme": lv["scheme"], "cluster": lv["cluster"],
+                        "bound_ms": lv["bound_ms"], **lv[name]}
+                for label, lv in others.items()}
+        out.append(row)
     return out
 
 
@@ -1701,7 +1810,7 @@ def main() -> int:
 
     t = time.perf_counter()
     checks.update(parity_sweep_3d(rng, dev))
-    keys_3d = ("whole3d", "whole3d_multipass", "slab3d", "slab3d_plane_pass",
+    keys_3d = ("whole3d", "whole3d_multipass", "whole3d_by_cluster", "slab3d", "slab3d_plane_pass",
                "slab3d_row_col_passes", "library")
     print(f"3-D parity: whole3d and slab3d kernels == plain versions on every case "
           f"{ {k: checks[k] for k in keys_3d} } "
@@ -1749,8 +1858,7 @@ def main() -> int:
         for lv in k.pop("levels"):
             if "ms" in lv:  # a 2-D kernel's level
                 tile = f", tile {lv['tile']}" if lv["tile"] else ""
-                dev_ms = ", ".join(f"{a} {b:.4f}" if isinstance(b, float) else f"{a} {b}"
-                                   for a, b in lv["device_ms"].items())
+                dev_ms = ", ".join(f"{a} {_fmt_ms(b)}" for a, b in lv["device_ms"].items())
                 print(f"  {k['name']} {lv['shape']}: {lv['ms']:.4f} ms (plain {lv['plain_ms']:.3f}"
                       f" ms, bound {lv['bound_ms']:.4f} ms{tile}; device: {dev_ms})")
             else:  # the Rice kernels: all bands of the batch at once
@@ -1760,21 +1868,25 @@ def main() -> int:
     levels_3d = {}
     for k in kernels_3d:
         k["launches"] = vp["launches"][k["name"]]
-        levels_3d[k["name"]] = {"levels": k.pop("levels"), "three_pass": k.pop("three_pass")}
+        levels_3d[k["name"]] = {"levels": k.pop("levels"), "other_levels": k.pop("other_levels")}
         for lv in levels_3d[k["name"]]["levels"]:
             path = ""
             if "passes" in lv:
                 path = (f", td {lv['td']}, {lv['passes']} passes"
                         + (f" (plane pass of {lv['plane_rows']} rows)" if lv["plane_rows"]
                            else " (row and column passes)")
-                        + "; by kernel: " + ", ".join(f"{a} {b:.4f}"
+                        + "; by kernel: " + ", ".join(f"{a} {_fmt_ms(b)}"
                                                       for a, b in lv["pass_ms"].items()))
+            else:
+                path = (f", device {_fmt_ms(lv['device_ms'])} ms, host {lv['host_us']:.1f} us a "
+                        f"call, cluster {lv['cluster']}")
             print(f"  {k['name']} {lv['shape']}: {lv['ms']:.4f} ms (plain {lv['plain_ms']:.3f} ms, "
                   f"bound {lv['bound_ms']:.4f} ms{path})")
-        tp = levels_3d[k["name"]]["three_pass"]
-        if tp:
-            print(f"  {k['name']} three-pass {tp['shape']} {tp['scheme']}: {tp['ms']:.4f} ms "
-                  f"(plain {tp['plain_ms']:.3f} ms, bound {tp['bound_ms']:.4f} ms)")
+        for label, lv in (levels_3d[k["name"]]["other_levels"] or {}).items():
+            print(f"  {k['name']} {label} {lv['shape']} {lv['scheme']}: {lv['ms']:.4f} ms "
+                  f"(device {_fmt_ms(lv['device_ms'])} ms, host {lv['host_us']:.1f} us a call, "
+                  f"cluster {lv['cluster']}; plain {lv['plain_ms']:.3f} ms, bound "
+                  f"{lv['bound_ms']:.4f} ms)")
     if args.json_out:
         record = {"card": card, "torch": torch.__version__, "seed": args.seed,
                   "parity_cases": checks, "serve": srv, "serve_encoded": enc,

@@ -64,31 +64,6 @@ struct Bands8 {
   int32_t* p[8];
 };
 
-// Band-policy cascade along the middle axis of an (A, n, C) block in
-// shared memory: A*C lines of n >= 2 samples; line (a, l) starts at
-// buf + a*n*C + l and its sample k sits C entries further per step.
-// Neighbouring threads take neighbouring lines.
-__device__ void cascade_policy_mid(int32_t* buf, int A, int n, int C, const Cascade& c) {
-  const int len[2] = {(n + 1) >> 1, n >> 1};
-  const int nl = A * C;
-  for (int s = 0; s < c.nsteps; ++s) {
-    const Step& st = c.steps[s];
-    const int tpar = st.tgt_odd, spar = 1 - tpar;
-    const int tlen = len[tpar], slen = len[spar];
-    for (int idx = threadIdx.x; idx < tlen * nl; idx += blockDim.x) {
-      const int line = idx % nl, i = idx / nl;
-      int32_t* base = buf + (line / C) * n * C + line % C;
-      auto read = [&](int j) -> int32_t {
-        if (j < 0 || j >= slen) j = reflect_entry(j, spar, n);
-        return base[(2 * j + spar) * C];
-      };
-      int32_t* t = base + (2 * i + tpar) * C;
-      *t = lift_value(st, *t, i, read);
-    }
-    __syncthreads();
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Row pass: `rb` rows of W samples per block.
 // ---------------------------------------------------------------------------

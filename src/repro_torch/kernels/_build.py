@@ -69,6 +69,7 @@ _SIGNATURES = {
     "whole3d": {
         "repro_whole3d_fwd": [_I] + [_P] * 16 + [_I] * 9 + [_P, _I, _P],
         "repro_whole3d_inv": [_I] + [_P] * 16 + [_I] * 9 + [_P, _I, _P],
+        "repro_whole3d_cluster_room": [_I, _I, _I, _P],
     },
     "slab3d": {
         "repro_slab3d_fwd": [_I] + [_P] * 16 + [_I] * 11 + [_P, _I, _P],
@@ -207,10 +208,18 @@ def launch(
     len(table),] stream)`` — the scheme table only where one is given; a
     pointer argument may be a tensor, None or a device address (int).
     Raises on a nonzero CUDA error code."""
-    lib = library(name)
     extra = () if table is None else (table.ctypes.data, len(table))
-    rc = getattr(lib, fn)(device, *(_ptr(t) for t in tensors), *ints, *extra,
-                          current_stream_handle(device))
+    call(name, fn, (device, *(_ptr(t) for t in tensors), *ints, *extra,
+                    current_stream_handle(device)))
+
+
+def call(name: str, fn: str, args: Sequence) -> None:
+    """Call one exported launcher of ``csrc/<name>.cu`` with its whole
+    argument list ready (addresses as ints, ctypes objects), for a caller
+    that builds the fixed part once per shape.  Raises on a nonzero CUDA
+    error code."""
+    lib = library(name)
+    rc = getattr(lib, fn)(*args)
     if rc != 0:
         msg = lib.repro_error_string(rc).decode()
         raise KernelLaunchError(f"{fn}: CUDA error {rc} ({msg})")
@@ -232,14 +241,15 @@ def check_tensors(
         if t.dtype not in dtypes:
             names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
             raise TypeError(f"{label}: kernel wrapper needs {names}, got {t.dtype}")
-        if t.device.type != "cuda":
+        if not t.is_cuda:
             raise ValueError(f"{label}: kernel wrapper needs CUDA tensors, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{label}: kernel wrapper needs contiguous tensors")
-        if dev is not None and t.device != dev:
-            raise ValueError(f"{label}: tensors on {dev} and {t.device}")
-        dev = t.device
-    return dev.index if dev.index is not None else torch.cuda.current_device()
+        index = t.get_device()
+        if dev is not None and index != dev:
+            raise ValueError(f"{label}: tensors on cuda:{dev} and {t.device}")
+        dev = index
+    return dev
 
 
 def _ptr(t) -> int:

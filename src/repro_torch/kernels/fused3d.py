@@ -22,11 +22,13 @@ every shape with all transform axes >= 2:
         (``backend.whole3d_budget_elems``), or for every such volume when
         ``REPRO_DWT_SLAB`` is set.
       - **whole-volume** (``csrc/whole3d.cu``): band-policy math on all
-        three axes, so every scheme and shape works; one block per volume
-        when the volume fits its shared memory, otherwise three passes
-        through device memory.  A large volume that cannot slab (cdf22
-        anywhere, haar on odd depth) runs here: the reference's ``xla``
-        cliff and its ``BackendDegradeWarning`` have no counterpart.
+        three axes, so every scheme and shape works; one thread-block
+        cluster of up to 16 blocks per volume where each block's run of
+        rows fits its shared memory (:func:`volume_geometry`), otherwise
+        three passes through device memory.  A large volume that cannot
+        slab (cdf22 anywhere, haar on odd depth) runs here: the
+        reference's ``xla`` cliff and its ``BackendDegradeWarning`` have
+        no counterpart.
 
   * ndim > 3 runs the per-level N-D math on the tensor's own device (the
     reference runs jnp math there too; no TPU kernel exists for it).
@@ -38,8 +40,9 @@ level launches a kernel or raises.  Every public function takes
 """
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -86,14 +89,19 @@ def check_volume(x: Tensor) -> None:
 def band_dims(bands: Sequence[Tensor]) -> Tuple[int, int, int, int]:
     """(B, D, H, W) of one level's eight (B, ...) bands; raises unless
     their shapes are the ones a (B, D, H, W) forward level produces."""
-    if len(bands) != _N_BANDS_3D or any(b.ndim != 4 for b in bands):
-        raise ValueError(f"need 8 (B, d, h, w) bands, got {[tuple(b.shape) for b in bands]}")
-    bsz = bands[0].shape[0]
-    d = bands[0].shape[1] + bands[4].shape[1]
-    h = bands[0].shape[2] + bands[2].shape[2]
-    w = bands[0].shape[3] + bands[1].shape[3]
+    return _band_dims_of(tuple(b.shape for b in bands))
+
+
+@functools.lru_cache(maxsize=256)
+def _band_dims_of(shapes: Tuple[Tuple[int, ...], ...]) -> Tuple[int, int, int, int]:
+    if len(shapes) != _N_BANDS_3D or any(len(s) != 4 for s in shapes):
+        raise ValueError(f"need 8 (B, d, h, w) bands, got {[tuple(s) for s in shapes]}")
+    bsz = shapes[0][0]
+    d = shapes[0][1] + shapes[4][1]
+    h = shapes[0][2] + shapes[2][2]
+    w = shapes[0][3] + shapes[1][3]
     want = [(bsz,) + dim for dim in _band_dims_3d(d, h, w)]
-    got = [tuple(b.shape) for b in bands]
+    got = [tuple(s) for s in shapes]
     if got != want or min(d, h, w) < 2:
         raise ValueError(f"band shape mismatch: got {got}, want {want}")
     return bsz, d, h, w
@@ -188,15 +196,91 @@ def inv3d_slab_plain(bands: Sequence[Tensor], mode: str, td: int, scheme="cdf53"
 # ---------------------------------------------------------------------------
 
 
+# A cluster of at most 16 blocks holds one volume (8 is the portable
+# size; 9-16 need the card's non-portable opt-in).
+CLUSTER_MAX = 16
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+# a block's share is cut no finer than this many samples: below it the
+# cluster barriers of a finer split cost more than the block's lifting
+# saves (the c sweep of tools/whole3d_anatomy.py, PERF.md)
+CLUSTER_MIN_SHARE = 256
+
+
+def cluster_rows(h: int, c: int) -> int:
+    """Rows of the largest share of an H-row slice split over a cluster
+    of ``c`` blocks (``csrc/whole3d.cu`` cluster_rows): the ceil(h/2) row
+    pairs in runs of whole pairs."""
+    return 2 * _cdiv(_cdiv(h, 2), c)
+
+
+def cluster_fits(d: int, h: int, w: int, c: int, device=None) -> bool:
+    """Whether a cluster of ``c`` blocks can hold one (d, h, w) volume:
+    at least one row pair a block (c <= ceil(h/2)), each block's share
+    (:func:`cluster_rows` rows of every slice) within one block's shared
+    memory, and the card co-schedules such a cluster
+    (:func:`_card_admits`)."""
+    share = cluster_rows(h, c) * d * w
+    return (1 <= c <= min(CLUSTER_MAX, _cdiv(h, 2))
+            and share <= _backend.whole3d_budget_elems(device)
+            and _card_admits(c, 4 * share, device))
+
+
+def _card_admits(c: int, nbytes: int, device) -> bool:
+    """Whether the card runs clusters of ``c`` blocks of ``nbytes`` shared
+    memory each (``cudaOccupancyMaxActiveClusters`` through
+    ``repro_whole3d_cluster_room``), asked once per device and size.  For
+    the CPU, the H100's answer: every size up to 16 at any share within a
+    block's budget."""
+    if device is None or torch.device(device).type != "cuda":
+        return True
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return _cluster_room(index, c, nbytes) > 0
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_room(index: int, c: int, nbytes: int) -> int:
+    room = ctypes.c_int(0)
+    rc = _build.library("whole3d").repro_whole3d_cluster_room(index, c, nbytes,
+                                                             ctypes.addressof(room))
+    return room.value if rc == 0 else 0
+
+
+def _pick_cluster(b: int, d: int, h: int, w: int, device) -> int:
+    """Blocks per volume of the whole-volume cluster path, 0 for none.
+
+    The smallest power of two c in ``CLUSTER_SIZES`` that
+    :func:`cluster_fits`; then doubled while the doubled size fits,
+    ``b * c`` blocks leave half the card's SMs idle and each share keeps
+    ``CLUSTER_MIN_SHARE`` samples.
+    """
+    fits = [c for c in CLUSTER_SIZES if cluster_fits(d, h, w, c, device)]
+    if not fits:
+        return 0
+    c, sms = fits[0], _backend.budgets(device)["sms"]
+    while (2 * c in fits and 2 * b * c <= sms
+           and cluster_rows(h, 2 * c) * d * w >= CLUSTER_MIN_SHARE):
+        c *= 2
+    return c
+
+
 def volume_geometry(
     b: int, d: int, h: int, w: int, device: Optional[torch.device] = None
 ) -> Dict[str, int]:
-    """Launch geometry of the multi-pass 3-D kernels for a (b, d, h, w)
-    level: ``fused`` when one volume fits one block's shared memory (the
-    whole-volume kernel then runs one block per volume); otherwise the row
-    pass's ``rb`` / ``row_global``, the column strips ``cw_h`` (H pass) and
-    ``cw_d`` (the whole-volume D pass), 0 meaning global scratch, and the
-    ``scratch`` entries the global stagings need."""
+    """Launch geometry of the whole-volume 3-D kernels for a (b, d, h, w)
+    level: ``cluster``, the blocks of the cluster that holds one volume
+    (:func:`_pick_cluster`; ``fused`` is 1 when there is one), or 0 for
+    the three passes through device memory, whose row pass's ``rb`` /
+    ``row_global``, column strips ``cw_h`` (H pass) and ``cw_d`` (D pass),
+    0 meaning global scratch, and ``scratch`` entries for the global
+    stagings follow."""
+    dev = None if device is None else torch.device(device)
+    return dict(_volume_geometry(b, d, h, w, dev))
+
+
+@functools.lru_cache(maxsize=256)
+def _volume_geometry(b, d, h, w, device) -> Dict[str, int]:
+    cluster = _pick_cluster(b, d, h, w, device)
     rows = _backend.row_geometry(b * d * h, w, device)
     cw_h, cw_d = _backend.strip_width(h, device), _backend.strip_width(d, device)
     wid = (w - w // 2, w // 2)
@@ -204,7 +288,7 @@ def volume_geometry(
     scratch = max(rows["scratch"], _backend.col_scratch(b * d, h, wid, cw_h),
                   _backend.col_scratch(b, d, planes, cw_d))
     return {
-        "fused": int(d * h * w <= _backend.whole3d_budget_elems(device)),
+        "cluster": cluster, "fused": int(cluster > 0),
         "rb": rows["rb"], "row_global": rows["row_global"], "cw_h": cw_h, "cw_d": cw_d,
         "scratch": scratch,
     }
@@ -217,6 +301,65 @@ def _intermediates(ref: Tensor, b: int, d: int, h: int, w: int):
     sw, dw = ref.new_empty((rows, we)), ref.new_empty((rows, wo))
     t = [ref.new_empty((b * d, hh, ww)) for hh, ww in ((he, we), (he, wo), (ho, we), (ho, wo))]
     return sw, dw, t
+
+
+class _WholePlan(NamedTuple):
+    """What one whole-volume call of a shape, scheme and direction needs
+    besides its tensors, built once: the geometry; each band's shape,
+    strides and offset (in int32 entries, on a 16-byte boundary) into one
+    allocation of ``total`` entries; and the launcher's integer arguments,
+    the scheme table's address and length last, as ctypes objects
+    (``table`` keeps that array alive)."""
+
+    geometry: Dict[str, int]
+    bands: Tuple[Tuple[Tuple[int, ...], Tuple[int, ...], int], ...]
+    total: int
+    ints: Tuple[object, ...]
+    table: np.ndarray
+
+
+@functools.lru_cache(maxsize=256)
+def _whole_plan(bsz, d, h, w, sch, mode, inverse, device) -> _WholePlan:
+    g = _volume_geometry(bsz, d, h, w, device)
+    bands, total = [], 0
+    for dim in _band_dims_3d(d, h, w):
+        strides = (dim[0] * dim[1] * dim[2], dim[1] * dim[2], dim[2], 1)
+        bands.append(((bsz,) + dim, strides, total))
+        total += _cdiv(bsz * strides[0], 4) * 4
+    table = _build.cascade_table(sch, mode, inverse)
+    ints = tuple(ctypes.c_int(v) for v in (bsz, d, h, w, g["cluster"], g["rb"],
+                                           g["row_global"], g["cw_h"], g["cw_d"]))
+    ints += (ctypes.c_void_p(table.ctypes.data), ctypes.c_int(len(table)))
+    return _WholePlan(g, tuple(bands), total, ints, table)
+
+
+def _at_cluster(plan: _WholePlan, cluster: int) -> _WholePlan:
+    """``plan`` with its cluster size forced to ``cluster`` (0: the three
+    passes), for the card tests and ``chip_smoke.py``'s sweep; a size the
+    shape or the card cannot take raises at the launch."""
+    g = dict(plan.geometry, cluster=cluster, fused=int(cluster > 0))
+    return plan._replace(geometry=g,
+                         ints=plan.ints[:4] + (ctypes.c_int(cluster),) + plan.ints[5:])
+
+
+def whole_bands(ref: Tensor, plan: _WholePlan) -> Tuple[Tensor, ...]:
+    """The eight bands of a forward level: one allocation on ``ref``'s
+    device, each band a contiguous view of it on a 16-byte boundary."""
+    flat = ref.new_empty((plan.total,))
+    return tuple(flat.as_strided(shape, stride, off) for shape, stride, off in plan.bands)
+
+
+def _work_buffers(ref: Tensor, plan: _WholePlan, b: int, d: int, h: int, w: int):
+    """The three passes' row bands, planes and scratch (as addresses;
+    the tensors are returned too, to be held until the launch is
+    queued); all null for a cluster."""
+    if plan.geometry["cluster"]:
+        return (0,) * 7, ()
+    sw, dw, t = _intermediates(ref, b, d, h, w)
+    n = plan.geometry["scratch"]
+    scratch = ref.new_empty((n,)) if n else None
+    held = (sw, dw, *t, scratch)
+    return tuple(_build._ptr(a) for a in held), held
 
 
 def slab_geometry(
@@ -279,42 +422,48 @@ def _slab_buffers(ref: Tensor, g: Dict[str, int], b: int, d: int, h: int, w: int
 
 def fwd3d_whole_cuda(x: Tensor, mode: str, scheme="cdf53") -> Tuple[Tensor, ...]:
     """Launch ``csrc/whole3d.cu`` forward on a (B, D, H, W) int32 CUDA
-    batch.  Replaces ``repro.kernels.fused3d._fwd3d_pallas``
+    batch: one cluster of :func:`volume_geometry`'s ``cluster`` blocks per
+    volume, or the three passes.  The bands are views of one allocation
+    (:func:`whole_bands`).  Replaces ``repro.kernels.fused3d._fwd3d_pallas``
     (``_fwd3d_kernel``)."""
     sch = S.get_scheme(scheme)
     check_volume(x)
-    dev = _build.check_tensors("fwd3d_whole", [x])
     bsz, d, h, w = x.shape
-    bands = [x.new_empty((bsz,) + dim) for dim in _band_dims_3d(d, h, w)]
-    g = volume_geometry(bsz, d, h, w, x.device)
-    sw, dw, t = _intermediates(x, bsz, d, h, w) if not g["fused"] else (None, None, [None] * 4)
-    scratch = x.new_empty((g["scratch"],)) if g["scratch"] and not g["fused"] else None
-    _build.launch(
-        "whole3d", "repro_whole3d_fwd", dev, [x, sw, dw, *t, *bands, scratch],
-        (bsz, d, h, w, g["fused"], g["rb"], g["row_global"], g["cw_h"], g["cw_d"]),
-        _build.cascade_table(sch, mode, inverse=False),
-    )
-    _backend.launches.bump("whole3d_fwd")
-    return tuple(bands)
+    return _whole_fwd(x, _whole_plan(bsz, d, h, w, sch, mode, False, x.device))
 
 
 def inv3d_whole_cuda(bands: Sequence[Tensor], mode: str, scheme="cdf53") -> Tensor:
     """Launch ``csrc/whole3d.cu`` inverse on eight (B, ...) int32 CUDA
-    bands.  Replaces ``repro.kernels.fused3d._inv3d_pallas``
-    (``_inv3d_kernel``)."""
+    bands, at the same geometry as the forward.  Replaces
+    ``repro.kernels.fused3d._inv3d_pallas`` (``_inv3d_kernel``)."""
     sch = S.get_scheme(scheme)
-    dev = _build.check_tensors("inv3d_whole", list(bands))
     bsz, d, h, w = band_dims(bands)
-    ref = bands[0]
-    x = ref.new_empty((bsz, d, h, w))
-    g = volume_geometry(bsz, d, h, w, ref.device)
-    sw, dw, t = _intermediates(ref, bsz, d, h, w) if not g["fused"] else (None, None, [None] * 4)
-    scratch = ref.new_empty((g["scratch"],)) if g["scratch"] and not g["fused"] else None
-    _build.launch(
-        "whole3d", "repro_whole3d_inv", dev, [*bands, *t, sw, dw, x, scratch],
-        (bsz, d, h, w, g["fused"], g["rb"], g["row_global"], g["cw_h"], g["cw_d"]),
-        _build.cascade_table(sch, mode, inverse=True),
-    )
+    return _whole_inv(bands, _whole_plan(bsz, d, h, w, sch, mode, True, bands[0].device))
+
+
+def _whole_fwd(x: Tensor, plan: _WholePlan) -> Tuple[Tensor, ...]:
+    """The forward launch of ``plan`` (from :func:`_whole_plan`, or
+    :func:`_at_cluster` to force a cluster size) on ``x``."""
+    dev = _build.check_tensors("fwd3d_whole", [x])
+    bsz, d, h, w = x.shape
+    bands = whole_bands(x, plan)
+    (sw, dw, *t, scratch), _held = _work_buffers(x, plan, bsz, d, h, w)
+    _build.call("whole3d", "repro_whole3d_fwd", (
+        dev, x.data_ptr(), sw, dw, *t, *(b.data_ptr() for b in bands), scratch, *plan.ints,
+        _build.current_stream_handle(dev)))
+    _backend.launches.bump("whole3d_fwd")
+    return bands
+
+
+def _whole_inv(bands: Sequence[Tensor], plan: _WholePlan) -> Tensor:
+    """The inverse launch of ``plan`` on eight bands."""
+    dev = _build.check_tensors("inv3d_whole", bands)
+    bsz, d, h, w = band_dims(bands)
+    x = bands[0].new_empty((bsz, d, h, w))
+    (sw, dw, *t, scratch), _held = _work_buffers(x, plan, bsz, d, h, w)
+    _build.call("whole3d", "repro_whole3d_inv", (
+        dev, *(b.data_ptr() for b in bands), *t, sw, dw, x.data_ptr(), scratch, *plan.ints,
+        _build.current_stream_handle(dev)))
     _backend.launches.bump("whole3d_inv")
     return x
 
@@ -499,7 +648,8 @@ def dwt_fwd_nd(
 
     ndim 3 is the volume engine (one block per volume within a block's
     shared memory, depth slabs beyond it where the scheme windows along
-    the depth, three passes through device memory otherwise); ndim 1 and
+    the depth, otherwise one cluster of blocks per volume, or three
+    passes through device memory where no cluster holds it); ndim 1 and
     2 run the 1-D and 2-D engines; any registered scheme, any axis
     lengths >= 2 (``levels=0`` is the identity pyramid).  Bit-exact
     against ``core.lifting.dwt_fwd_nd``.  ``checked=True`` (or

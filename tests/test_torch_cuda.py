@@ -356,6 +356,73 @@ def test_cuda_3d_kernels_match_plain_versions(name, mode, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("name", SCHEMES)
+def test_cuda_whole3d_cluster_path_matches_plain_versions(name, mode, cuda_device):
+    """The whole-volume kernels at every cluster size a shape admits (and
+    the geometry's own, and the three passes): H odd, H < 2c (the last
+    block one row), H = 2, B from 1 to 9, int32 extremes."""
+    from repro_torch.kernels import fused3d as T3
+
+    rng = np.random.default_rng(29)
+    shapes = [(1, 2, 2, 2), (2, 3, 3, 7), (3, 2, 7, 33), (4, 8, 64, 64), (5, 4, 15, 16),
+              (6, 3, 31, 9), (7, 2, 130, 3), (8, 5, 17, 40), (9, 2, 32, 32), (2, 5, 2, 64)]
+    seen = set()
+    for shp in shapes:
+        bsz, d, h, w = shp
+        for kind in ("rand", "min", "max") if shp in ((2, 3, 3, 7), (5, 4, 15, 16)) else ("rand",):
+            x = _img(rng, shp) if kind == "rand" else np.full(
+                shp, I32.min if kind == "min" else I32.max, np.int32)
+            xt = torch.from_numpy(x).to(cuda_device)
+            want = T3.fwd3d_whole_plain(xt, mode, name)
+            back = T3.inv3d_whole_plain(want, mode, name)
+            for a, b in zip(T3.fwd3d_whole_cuda(xt, mode, name), want):
+                assert torch.equal(a, b), (shp, kind)
+            assert torch.equal(T3.inv3d_whole_cuda(want, mode, name), back), (shp, kind)
+            plans = [T3._whole_plan(bsz, d, h, w, TS.get_scheme(name), mode, inverse, xt.device)
+                     for inverse in (False, True)]
+            for c in (0,) + T3.CLUSTER_SIZES:
+                if c and not T3.cluster_fits(d, h, w, c, cuda_device):
+                    continue
+                fwd, inv = (T3._at_cluster(p, c) for p in plans)
+                for a, b in zip(T3._whole_fwd(xt, fwd), want):
+                    assert torch.equal(a, b), (shp, kind, c)
+                assert torch.equal(T3._whole_inv(want, inv), back), (shp, kind, c)
+                seen.add(c)
+    torch.cuda.synchronize(cuda_device)
+    assert seen == {0, 1, 2, 4, 8, 16}
+
+
+@pytest.mark.cuda
+def test_cuda_whole3d_refuses_what_it_cannot_run(cuda_device):
+    """A cluster size the shape or the card cannot take raises; nothing
+    falls back to fewer blocks or to the plain version."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused3d as T3
+
+    def forced(t, c):
+        plan = T3._whole_plan(*t.shape, TS.get_scheme("cdf53"), "paper", False, t.device)
+        return T3._whole_fwd(t, T3._at_cluster(plan, c))
+
+    TK.launches.reset()
+    x = torch.zeros((1, 2, 5, 8), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(_build.KernelLaunchError):  # 16 blocks, 3 row pairs
+        forced(x, 16)
+    big = torch.zeros((1, 30, 32, 1000), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(_build.KernelLaunchError):  # shares of 240,000 bytes
+        forced(big, 16)
+    with pytest.raises(_build.KernelLaunchError):
+        forced(x, 17)
+    assert not T3.cluster_fits(30, 32, 1000, 16, cuda_device)
+    assert all(T3.cluster_fits(8, 64, 64, c, cuda_device) for c in T3.CLUSTER_SIZES)
+    assert T3.volume_geometry(*big.shape, cuda_device)["cluster"] == 0
+    for a, b in zip(T3.fwd3d_whole_cuda(big, "paper", "cdf53"),
+                    T3.fwd3d_whole_plain(big, "paper", "cdf53")):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize(cuda_device)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", SCHEMES)
 def test_cuda_slab_plane_pass_branches_match_plain_versions(name, cuda_device):
     """The depth-slab kernels on the shapes that force each branch of the
