@@ -23,7 +23,11 @@ Phases (any failure raises and the script exits nonzero):
    decoded bands with ``torch.equal``, on adversarial bands (constant,
    all-escape int32 extremes, one value, empty, cost ties, partial tails,
    multi-thousand-block bands), each alone and all in one launch, and on
-   the 16 bands of one 1024^2 x 8 batch in one launch.
+   the 16 bands of one 1024^2 x 8 batch in one launch; then malformed
+   blocks whose tables pass the host checks (all escapes, under 5 bytes,
+   65,535 bytes of garbage, codes running past the bytes, random bytes at
+   every k) decoded in one launch beside a well-formed band, each equal to
+   ``codec.rice.decode_block_serial``.
 3. Serve: ``WaveletServeEngine`` with 1024^2 and 2048^2 buckets, 8 slots,
    5 levels of the reversible 5/3 lift (cdf53, jpeg2000 rounding — JPEG
    2000 Part 1's lossless path) on 8-bit samples with the DC level shift,
@@ -40,8 +44,9 @@ Phases (any failure raises and the script exits nonzero):
    the same bands; ``ProgressiveServeRoute`` thumbnails and full tiers are
    checked; no encode may degrade or quarantine.  The counters are reset
    just before and read just after: all six kernels must have launched,
-   ``rice_encode`` once per encoded batch.  One 2048^2 x 8 encoded step
-   is then timed phase by phase.
+   ``rice_encode`` once per encoded batch and ``rice_decode`` once per
+   decoded container.  One 2048^2 x 8 encoded step is then timed phase by
+   phase.
 5. 1-D parity: the windowed 1-D kernels (``lift1d.cu``) and the row pass
    (``whole2d.cu``, the 1-D fallback) against their plain versions with
    ``torch.equal``: 4 schemes x 2 modes, n in {2, 3, 5, 15, 16, 17, 31,
@@ -56,7 +61,8 @@ Phases (any failure raises and the script exits nonzero):
    container and decoded and inverted on the card, and four 1-D chunks go
    through a WZRS stream.  The counters are reset just before and read
    just after: both 1-D kernels, the row pass and the Rice kernels must
-   have launched, and no plain version may have been called on a CUDA
+   have launched (``rice_decode`` once for the container and once per
+   stream frame), and no plain version may have been called on a CUDA
    tensor.  Then the results are held against the plain versions: the
    pyramids and the container and stream bytes must be equal, every
    reconstruction the input.
@@ -88,12 +94,16 @@ Phases (any failure raises and the script exits nonzero):
    four 3-D kernels and the Rice kernels must have launched, no plain
    version may have run on a CUDA tensor.  Then every pyramid must equal
    the plain oracle, every response its request, and the container and
-   stream bytes the plain encode; one encoded 4 x (64, 512, 512) step is
-   timed phase by phase.
+   stream bytes the plain encode; every band of every stream frame
+   decoded on the card must equal the plain decode; one encoded 4 x (64,
+   512, 512) step is timed phase by phase.
 9. Time each kernel with CUDA events at the shapes its path gives it
    (one 2048^2 batch of 8 slots: every level for the 2-D kernels, all 16
    bands for the Rice kernels, whose encode first codes them 20 times in
-   a row, each payload byte-equal to the first and to the plain encode; 4 levels at (a) 64 x 65,536, (b) 1024 x
+   a row, each payload byte-equal to the first and to the plain encode,
+   and whose decode, one launch for all 16, is also timed as a whole
+   ``decode_bands`` call and on the 29 bands of one 4 x (64, 512, 512)
+   batch, every band equal to the plain decode; 4 levels at (a) 64 x 65,536, (b) 1024 x
    65,536 and (c) one line of 11,534,336 samples for the 1-D kernels, the
    cdf22 row pass at (a) and (c); the 4 levels of one 4 x (64, 512, 512)
    batch for the 3-D kernels, and the whole-volume kernels also at every
@@ -346,6 +356,7 @@ def rice_sweep(rng, dev) -> dict:
         cases += 1
     rice_check("all adversarial bands at once", list(flats.values()), dev)
     cases += 1
+    cases += rice_malformed(rng, dev)
     x = torch.from_numpy(rng.integers(-128, 128, (SLOTS, 1024, 1024), dtype=np.int32)).to(dev)
     pyr = K.dwt_fwd_2d_multi(x, levels=LEVELS, mode=MODE, scheme=SCHEME)
     rice_check("1024^2x8 bands", [b.reshape(-1) for b in [pyr.ll] + [b for lvl in pyr.details
@@ -353,6 +364,48 @@ def rice_sweep(rng, dev) -> dict:
     cases += 1
     torch.cuda.synchronize(dev)
     return {"rice": cases}
+
+
+def malformed_blocks(rng):
+    """Rice blocks that no encoder writes but whose tables pass the host
+    checks, as (name, bytes, k): all escapes, fewer than 5 bytes, 65,535
+    bytes of garbage, codes running past the block's bytes, random bytes
+    at every k."""
+    from repro_torch.codec import rice as R
+
+    ff = b"\xff"
+    blocks = [("all_escapes", ff * 1280, 3), ("all_escapes_200", ff * 200, 0)]
+    blocks += [(f"ones_{n}", ff * n, 5) for n in range(5)]
+    blocks += [(f"random_{n}", rng.bytes(n), int(rng.integers(R.K_MAX + 1))) for n in range(1, 5)]
+    garbage = rng.bytes(65535)
+    blocks += [("garbage_65535", garbage, 0), ("garbage_65535_k7", garbage, 7)]
+    blocks += [("past_its_bytes", rng.bytes(40), R.K_MAX),
+               ("escape_past_its_bytes", ff * 6 + bytes(3), 0)]
+    blocks += [(f"random_k{k}", rng.bytes(int(rng.integers(1, 1400))), k)
+               for k in range(R.K_MAX + 1)]
+    return blocks
+
+
+def rice_malformed(rng, dev) -> int:
+    """The decode kernel on malformed blocks, one band each and all in one
+    band, beside well-formed bands in the same launch: equal to
+    ``codec.rice.decode_block_serial`` (bytes past a block's length read
+    as zero).  Returns the cases."""
+    from repro_torch.codec import rice as R
+
+    blocks = malformed_blocks(rng)
+    groups = [[b] for b in blocks] + [blocks]
+    items = [(b"".join(b for _, b, _ in g), np.array([k for *_, k in g], np.uint8),
+              np.array([len(b) for _, b, _ in g], np.uint16), 256 * len(g) - 17 * (len(g) > 1))
+             for g in groups]
+    x = torch.from_numpy(rng.integers(-3000, 3000, 5 * 256 + 9).astype(np.int32)).to(dev)
+    got = R.decode_bands([(*R.encode_band(x), x.numel())] + items, device=dev)
+    _equal_or_raise("rice_decode well-formed band beside malformed ones", [got[0]], [x])
+    for g, it, v in zip(groups, items, got[1:]):
+        want = np.concatenate([R.decode_block_serial(b, k) for _, b, k in g])[: it[3]]
+        _equal_or_raise(f"rice_decode malformed {g[0][0] if len(g) == 1 else 'all'}", [v],
+                        [torch.from_numpy(want).to(dev)])
+    return len(groups)
 
 
 # ---------------------------------------------------------------------------
@@ -624,6 +677,9 @@ def serve_encoded(rng, dev, n_requests) -> dict:
     if encode_counts.get("rice_encode") != len(lat_ms):
         raise AssertionError(f"{encode_counts.get('rice_encode')} rice_encode launches for "
                              f"{len(lat_ms)} encoded batches: want one per batch")
+    if counts.get("rice_decode", 0) - encode_counts.get("rice_decode", 0) != len(batches):
+        raise AssertionError(f"{counts.get('rice_decode')} rice_decode launches for "
+                             f"{len(batches)} decoded containers: want one per container")
 
     # one batch per bucket: byte-equal to the plain Rice encode of its bands
     plain_checked = []
@@ -785,27 +841,28 @@ def time_rice(rng, dev) -> list:
         pay[:payload], torch.from_numpy(ks.copy()), torch.from_numpy(lens.astype(np.int32))], [
         torch.cat(encode_plain()), torch.from_numpy(np.concatenate([c[1] for c in coded])),
         torch.from_numpy(np.concatenate([c[2] for c in coded]).astype(np.int32))])
-    dec_in = []
-    for pay, ks, lens in coded:
-        offs = np.concatenate([[0], np.cumsum(lens.astype(np.int64))[:-1]])
-        dec_in.append((torch.from_numpy(np.frombuffer(pay, np.uint8).copy()).to(dev),
-                       torch.from_numpy(offs).to(dev),
-                       torch.from_numpy(lens.astype(np.int32)).to(dev),
-                       torch.from_numpy(ks).to(dev)))
-    dec_err = max(_equal_or_raise(
-        f"rice_decode band {i}", [R.rice_decode_cuda(*inp)[: b.numel()]],
-        [_plain_decode(c[0], c[1], c[2], b.numel(), dev)])
-        for i, (b, c, inp) in enumerate(zip(bands, coded, dec_in)))
+    items = [(c[0], c[1], c[2], b.numel()) for b, c in zip(bands, coded)]
+    dec = decode_timing("16 bands of one 2048^2 x 8 batch", bands, items, dev)
+    dec_err = max(_equal_or_raise(f"rice_decode band {i}", [v], [_plain_decode(*c, b.numel(), dev)])
+                  for i, (b, c, v) in enumerate(zip(bands, coded, dec.pop("values"))))
+    vol = decode_timing("29 bands of one 4 x (64, 512, 512) KIND_ND batch", *volume_bands(rng, dev),
+                        dev)
+    vol_err = max(_equal_or_raise(f"rice_decode volume band {i}", [v],
+                                  [_plain_decode(*it[:3], it[3], dev)])
+                  for i, (v, it) in enumerate(zip(vol.pop("values"), vol.pop("items"))))
+    dec.pop("items")
+    dec_err = max(dec_err, vol_err)
 
     runs = {  # bytes: the bands read once; payload, tables and band offsets written once
         "rice_encode": (encode_on_card, encode_plain,
                         4 * count + payload + 3 * nblocks + 8 * (len(bands) + 1),
                         RICE_OPS * count, enc_err),
-        "rice_decode": (lambda: [R.rice_decode_cuda(*inp) for inp in dec_in],
+        "rice_decode": (dec.pop("launch"),
                         lambda: [_plain_decode(c[0], c[1], c[2], b.numel(), dev)
                                  for b, c in zip(bands, coded)],
                         payload + 4 * count, RICE_OPS * count, dec_err),
     }
+    vol.pop("launch")
     out = []
     for name, (kern, plain, nbytes, ops, err) in runs.items():
         source, replaces = KERNELS[name]
@@ -818,9 +875,57 @@ def time_rice(rng, dev) -> list:
             "levels": [{"shape": [len(bands), count], "payload_bytes": payload,
                         "bits_per_coefficient": 8 * payload / count,
                         "device_ms": _pass_ms(kern),
-                        "stress_runs": STRESS_RUNS if name == "rice_encode" else 0}],
+                        "stress_runs": STRESS_RUNS if name == "rice_encode" else 0}]
+            + ([dec, vol] if name == "rice_decode" else []),
         })
     return out
+
+
+def volume_bands(rng, dev):
+    """The 29 bands of one 4 x (64, 512, 512) batch as the 3-D encoded
+    path codes them (4 levels, cdf53 / jpeg2000; two CT-like phantoms,
+    two volumes of 12-bit noise): (bands, their codings as
+    ``decode_bands`` items)."""
+    from repro_torch import kernels as K
+    from repro_torch.codec import rice as R
+
+    vols = [phantom(rng, VOLUME, dev, noise=2) if i % 2 else
+            torch.from_numpy(rng.integers(*CT12, VOLUME, dtype=np.int32)).to(dev)
+            for i in range(VOL_SLOTS)]
+    pyr = K.dwt_fwd_nd(torch.stack(vols), levels=VOL_LEVELS, mode=VOL_MODE, scheme=VOL_SCHEME)
+    bands = [b.reshape(-1) for b in _leaves3(pyr)]
+    return bands, [(*c, b.numel()) for b, c in zip(bands, R.encode_bands(bands))]
+
+
+def decode_timing(label, bands, items, dev) -> dict:
+    """The Rice decode of ``items`` (one container's bands): the launcher
+    over all of them with their bytes staged on the card (CUDA events,
+    device ms), and the whole ``decode_bands`` call (events, host us a
+    call); each band's values equal to the band.  Returns the record with
+    the launcher (``launch``), the decoded bands (``values``) and the
+    items."""
+    from repro_torch.codec import rice as R
+
+    host, table, nb = R.stage_bands([R.check_band(*it) for it in items])
+    staged = host.to(dev)
+    firsts = table[R.TABLE_HEAD:]
+
+    def launch():
+        return R.rice_decode_cuda(staged, table, nb)
+
+    out = launch()
+    values = [out[256 * int(f): 256 * int(f) + b.numel()] for f, b in zip(firsts, bands)]
+    got = R.decode_bands(items, device=dev)
+    for i, (v, g, b) in enumerate(zip(values, got, bands)):
+        _equal_or_raise(f"rice_decode {label} band {i}", [v, g], [b, b])
+    payload = sum(len(it[0]) for it in items)
+    count = sum(b.numel() for b in bands)
+    return {"set": label, "shape": [len(bands), count], "payload_bytes": payload,
+            "bound_ms": (payload + 4 * count) / PEAK_BYTES_PER_S * 1e3,
+            "ms": _median_ms(launch, 10), "device_ms": _pass_ms(launch, per_call=1),
+            "decode_bands_ms": _median_ms(lambda: R.decode_bands(items, device=dev), 5),
+            "decode_bands_host_us": _host_us(lambda: R.decode_bands(items, device=dev), dev, 10),
+            "launch": launch, "values": values, "items": items}
 
 
 # ---------------------------------------------------------------------------
@@ -996,6 +1101,9 @@ def library_path_1d(rng, dev) -> dict:
     missing = [k for k in need if counts.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels {missing} never launched on the 1-D path: {counts}")
+    if counts["rice_decode"] != 1 + len(chunks):
+        raise AssertionError(f"{counts['rice_decode']} rice_decode launches for one container and "
+                             f"a stream of {len(chunks)} frames: want one per container")
 
     for cfg in configs:
         x = inputs[cfg.name]
@@ -1518,6 +1626,7 @@ def volume_paths(rng, dev) -> dict:
     frames.append(ST2.terminator())
     if b"".join(frames) != data:
         raise AssertionError("3-D stream coded on the card differs from the plain encode")
+    stream_bands = stream_decode_check(data, dev)
     big = sorted((r for r in served["encoded"]["reqs"] if r.bucket == VOL_BUCKETS[-1]),
                  key=lambda r: r.batch_index)
     breakdown = volume_breakdown(big, dev)
@@ -1534,7 +1643,29 @@ def volume_paths(rng, dev) -> dict:
             "plans": plans, "serve": summary, "warmup_s": warm_s,
             "container_bytes": {str(r.uid): len(r.encoded) for r in served["encoded"]["reqs"]},
             "plain_container_checked": plain_checked, "thumbnail_uid": thumb_req.uid,
-            "stream_bytes": len(data), "breakdown_ms": breakdown}
+            "stream_bytes": len(data), "stream_bands_checked": stream_bands,
+            "breakdown_ms": breakdown}
+
+
+def stream_decode_check(data, dev) -> int:
+    """Every band of every frame of a WZRS stream decoded on the card in
+    one launch a frame, each equal to the plain decode.  Returns the
+    bands checked."""
+    from repro_torch.codec import container as C
+    from repro_torch.codec import rice as R
+    from repro_torch.codec import stream as ST
+
+    n = 0
+    for f, blob in enumerate(ST.iter_frames(data)):
+        h = C._parse_header(blob)
+        blobs, _ = C._band_blobs(blob, h)
+        shapes = C._expected_band_shapes(h.kind, h.shape, h.levels)
+        coded = [C._band_coding(b, C._band_count(h, shp)) for b, shp in zip(blobs, shapes)]
+        for i, (c, got) in enumerate(zip(coded, R.decode_checked(coded, dev))):
+            _equal_or_raise(f"rice_decode stream frame {f} band {i}", [got],
+                            [_plain_decode(c.payload, c.ks, c.lens, c.count, dev)])
+            n += 1
+    return n
 
 
 def _pass_ms(fn, reps: int = 5, per_call: int | None = None, warm: int = 3,
@@ -1856,11 +1987,16 @@ def main() -> int:
                   f"{sh['plain_ms']:.3f} ms, bound {sh['bound_ms']:.4f} ms)")
     for k in kernels:
         for lv in k.pop("levels"):
-            if "ms" in lv:  # a 2-D kernel's level
+            if "tile" in lv:  # a 2-D kernel's level
                 tile = f", tile {lv['tile']}" if lv["tile"] else ""
                 dev_ms = ", ".join(f"{a} {_fmt_ms(b)}" for a, b in lv["device_ms"].items())
                 print(f"  {k['name']} {lv['shape']}: {lv['ms']:.4f} ms (plain {lv['plain_ms']:.3f}"
                       f" ms, bound {lv['bound_ms']:.4f} ms{tile}; device: {dev_ms})")
+            elif "set" in lv:  # the decode of one container's bands, one launch
+                dev_ms = ", ".join(f"{a} {_fmt_ms(b)}" for a, b in lv["device_ms"].items())
+                print(f"  {k['name']} {lv['set']}: {lv['ms']:.4f} ms (device: {dev_ms}; "
+                      f"decode_bands {lv['decode_bands_ms']:.4f} ms, host "
+                      f"{lv['decode_bands_host_us']:.1f} us a call; bound {lv['bound_ms']:.4f} ms)")
             else:  # the Rice kernels: all bands of the batch at once
                 print(f"  {k['name']} {lv}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms,"
                       f" bound {k['bound_ms']:.4f} ms, {k['bound_by']})")

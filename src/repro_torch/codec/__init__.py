@@ -15,7 +15,8 @@ same bytes, both ways.
     errors.py      the typed error taxonomy
 
 Encode codes each band where it lives; decode rebuilds bands on
-``device`` (the card by default).  ``decode_band`` at this package level
+``device`` (the card by default: one decode launch for all the bands of
+a container, ``rice.decode_bands``).  ``decode_band`` at this package level
 is the PROGRESSIVE per-band decoder (container in, one band out); the
 coder-level primitive of the same name stays at
 ``repro_torch.codec.rice.decode_band``.

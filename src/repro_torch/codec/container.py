@@ -487,14 +487,17 @@ def peek(data: bytes) -> dict:
     }
 
 
-def _decode_band_blob(blob: bytes, count: int, device) -> torch.Tensor:
+def _band_coding(blob: bytes, count: int) -> "rice.Checked":
+    """A band blob's tables and payload, checked on the host (no copy of
+    the payload: a view of the blob).  Raises ``TruncatedStreamError`` or
+    ``ValueError``."""
     nb = rice.n_blocks(count)
     need = nb + 2 * nb
     if len(blob) < need:
         raise TruncatedStreamError(f"band blob truncated: {len(blob)} bytes, tables need {need}")
     ks = np.frombuffer(blob, np.uint8, nb)
     lens = np.frombuffer(blob, "<u2", nb, offset=nb)
-    return rice.decode_band(blob[nb + 2 * nb :], ks, lens, count, device=device)
+    return rice.check_band(memoryview(blob)[need:], ks, lens, count)
 
 
 def _band_count(h: _Header, shp: Tuple[int, ...]) -> int:
@@ -507,6 +510,32 @@ def _band_count(h: _Header, shp: Tuple[int, ...]) -> int:
 def _to_band(flat: torch.Tensor, h: _Header, shp: Tuple[int, ...]) -> torch.Tensor:
     """A decoded flat int32 band as the container's dtype and shape."""
     return flat.to(getattr(torch, h.dtype.name)).reshape(h.lead + tuple(shp))
+
+
+def _band_blobs(data: bytes, h: _Header) -> Tuple[List[Optional[bytes]], List[str]]:
+    """Slice out the band blobs in pack order, with their status: v1
+    checks the whole-container CRC32 (raises on a mismatch), v2 each
+    band's (:func:`_band_blobs_v2`)."""
+    if h.version != 1:
+        return _band_blobs_v2(data, h)
+    end = len(data)
+    if h.flags & 1:
+        end -= 4
+        (want,) = struct.unpack_from("<I", data, end)
+        got = zlib.crc32(data[:end]) & 0xFFFFFFFF
+        if got != want:
+            raise CodecError(f"WZRC checksum mismatch (crc32 {got:#010x} != {want:#010x})")
+    if h.body_off + sum(h.blob_lens) != end:
+        raise TruncatedStreamError(
+            f"container body is {end - h.body_off} bytes, band table "
+            f"sums to {sum(h.blob_lens)} (truncated or corrupt)"
+        )
+    blobs: List[Optional[bytes]] = []
+    off = h.body_off
+    for blen in h.blob_lens:
+        blobs.append(data[off : off + blen])
+        off += blen
+    return blobs, [BAND_OK] * len(blobs)
 
 
 def _band_blobs_v2(data: bytes, h: _Header) -> Tuple[List[Optional[bytes]], List[str]]:
@@ -568,43 +597,24 @@ def _decode_common(data: bytes, partial: bool, device):
     dev = _device(device)
     data = bytes(data)
     h = _parse_header(data)
-    end = len(data)
-    if h.version == 1:
-        if h.flags & 1:
-            end -= 4
-            (want,) = struct.unpack_from("<I", data, end)
-            got = zlib.crc32(data[:end]) & 0xFFFFFFFF
-            if got != want:
-                raise CodecError(f"WZRC checksum mismatch (crc32 {got:#010x} != {want:#010x})")
-        if h.body_off + sum(h.blob_lens) != end:
-            raise TruncatedStreamError(
-                f"container body is {end - h.body_off} bytes, band table "
-                f"sums to {sum(h.blob_lens)} (truncated or corrupt)"
-            )
-        blobs: List[Optional[bytes]] = []
-        off = h.body_off
-        for blen in h.blob_lens:
-            blobs.append(data[off : off + blen])
-            off += blen
-        status = [BAND_OK] * len(blobs)
-    else:
-        blobs, status = _band_blobs_v2(data, h)
-
+    blobs, status = _band_blobs(data, h)
     band_shapes = _expected_band_shapes(h.kind, h.shape, h.levels)
-    bands = []
-    for i, (blob, shp) in enumerate(zip(blobs, band_shapes)):
-        count = _band_count(h, shp)
+    counts = [_band_count(h, shp) for shp in band_shapes]
+    coded = {}
+    for i, (blob, count) in enumerate(zip(blobs, counts)):
         if blob is not None:
             try:
-                flat = _decode_band_blob(blob, count, dev)
+                coded[i] = _band_coding(blob, count)
             except (CodecError, ValueError):
                 # CRC-valid but undecodable should be impossible; treat
                 # it as corruption rather than leaking a raw error
-                blob = None
                 status[i] = BAND_CORRUPT
-        if blob is None:
-            flat = torch.zeros(count, dtype=torch.int32, device=dev)  # quarantined
-        bands.append(_to_band(flat, h, shp))
+    # every band that passed its checks in one decode (one launch on the card)
+    flats = dict(zip(coded, rice.decode_checked(list(coded.values()), dev)))
+    bands = [_to_band(flats[i] if i in flats else
+                      torch.zeros(count, dtype=torch.int32, device=dev),  # quarantined
+                      h, shp)
+             for i, (count, shp) in enumerate(zip(counts, band_shapes))]
 
     healed = sum(1 for s in status if s == BAND_RECONSTRUCTED)
     if healed:

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.codec import container as C
+from repro_torch.codec import rice
 from repro_torch.codec.errors import CodecError, CorruptBandError, CorruptHeaderError
 
 __all__ = [
@@ -175,24 +176,41 @@ def _read_band_blob(r, h: C._Header, index: int, heal: bool) -> Tuple[Optional[b
     return None, C.BAND_CORRUPT
 
 
-def _decode_one(r, h: C._Header, index: int, heal: bool, partial: bool, dev):
+def _read_coded(r, h: C._Header, index: int, heal: bool, partial: bool):
+    """One band's checked coding (None when quarantined) and status;
+    without ``partial`` a band that cannot be decoded raises."""
     shp = C._expected_band_shapes(h.kind, h.shape, h.levels)[index]
     count = C._band_count(h, shp)
     blob, status = _read_band_blob(r, h, index, heal)
+    coded = None
     if blob is not None:
         try:
-            flat = C._decode_band_blob(blob, count, dev)
+            coded = C._band_coding(blob, count)
         except (CodecError, ValueError):
-            blob, status = None, C.BAND_CORRUPT
-    if blob is None:
-        if not partial:
-            raise CorruptBandError(
-                f"WZRC band {index} corrupt and unrecoverable "
-                f"({'parity absent' if not h.parity_len else 'parity could not heal'})",
-                band_status=(status,),
-            )
-        flat = torch.zeros(count, dtype=torch.int32, device=dev)
-    return C._to_band(flat, h, shp), status
+            status = C.BAND_CORRUPT
+    if coded is None and not partial:
+        raise CorruptBandError(
+            f"WZRC band {index} corrupt and unrecoverable "
+            f"({'parity absent' if not h.parity_len else 'parity could not heal'})",
+            band_status=(status,),
+        )
+    return coded, status
+
+
+def _decode_some(r, h: C._Header, indices, heal: bool, partial: bool, dev):
+    """The bands ``indices`` from their byte ranges: each read and checked,
+    then every one that passed decoded at once (one launch on the card),
+    a quarantined one as zeros.  Returns (bands, statuses)."""
+    read = [_read_coded(r, h, i, heal, partial) for i in indices]
+    coded = [c for c, _ in read if c is not None]
+    flats = iter(rice.decode_checked(coded, dev))
+    shapes = C._expected_band_shapes(h.kind, h.shape, h.levels)
+    bands = []
+    for i, (c, _) in zip(indices, read):
+        flat = next(flats) if c is not None else torch.zeros(
+            C._band_count(h, shapes[i]), dtype=torch.int32, device=dev)
+        bands.append(C._to_band(flat, h, shapes[i]))
+    return bands, [st for _, st in read]
 
 
 class BandDecode(NamedTuple):
@@ -218,7 +236,7 @@ def decode_band(src: Any, index: int, *, heal: bool = True, device="cuda") -> Ba
     h = read_header(r)
     if not 0 <= index < len(h.blob_lens):
         raise ValueError(f"band index {index} out of range ({len(h.blob_lens)} bands)")
-    band, status = _decode_one(r, h, index, heal, partial=False, dev=dev)
+    (band,), (status,) = _decode_some(r, h, [index], heal, partial=False, dev=dev)
     return BandDecode(
         band=band, index=index, status=status, kind=h.kind, scheme=h.scheme, mode=h.mode,
         levels=h.levels, lead=h.lead, shape=h.shape, dtype=h.dtype,
@@ -243,12 +261,7 @@ def decode_progressive(
     h = read_header(r)
     if not 0 <= up_to_level <= h.levels:
         raise ValueError(f"up_to_level must be in [0, {h.levels}], got {up_to_level}")
-    bands = []
-    status: List[str] = []
-    for i in range(_band_count(h, up_to_level)):
-        band, st = _decode_one(r, h, i, heal, partial, dev)
-        bands.append(band)
-        status.append(st)
+    bands, status = _decode_some(r, h, range(_band_count(h, up_to_level)), heal, partial, dev)
     trunc = h._replace(levels=up_to_level)
     return C.DecodedPyramid(
         pyramid=C._assemble(trunc, bands), kind=h.kind, scheme=h.scheme, mode=h.mode,

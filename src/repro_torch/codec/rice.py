@@ -19,13 +19,18 @@ Two hand-written CUDA kernels (``csrc/rice.cu``) take a CUDA tensor:
     their final offset in one payload, beside the k and byte-length
     tables;
   * ``rice_decode`` — the reference's 256-step ``lax.scan`` of gathers
-    (``_decode_chunk``, no Pallas kernel on the TPU side): one thread per
-    Rice block walks its codes from its own byte range.
+    (``_decode_chunk``, no Pallas kernel on the TPU side), in ONE launch
+    over every band of a container: one warp per Rice block, its lanes
+    splitting the block's bits, code boundaries made exact by
+    synchronising rounds, each block's bytes found by a look-back over
+    tiles of blocks.
 
 Beside them, the plain PyTorch versions the CPU tests run and the card
 check holds the kernels against: :func:`zigzag`, :func:`unzigzag`,
 :func:`pack_words`, :func:`_encode_chunk` and :func:`_decode_chunk`,
-written as the reference writes them.  Unsigned 32-bit arithmetic runs in
+written as the reference writes them; and :func:`decode_block_serial`,
+one block as the decode kernel reads it (bytes past its length zero),
+for streams that are not well formed.  Unsigned 32-bit arithmetic runs in
 int64 masked to 32 bits (torch's uint32 coverage on the CPU is partial),
 which gives the reference's bits for ``INT32_MIN`` / ``INT32_MAX``.
 
@@ -33,12 +38,14 @@ Host-facing API: :func:`encode_bands` takes a pyramid's bands and codes
 each where it lives (the CUDA bands of a device: one launch, then one
 copy of the tables and one of exactly the payload's bytes to the host;
 CPU bands: the plain version in ``CHUNK_BLOCKS`` chunks);
-:func:`encode_band` is it for one band; :func:`decode_band` rebuilds a
-band on ``device`` (the card by default; it raises without one).
+:func:`encode_band` is it for one band; :func:`decode_bands` rebuilds
+bands on ``device`` (the card by default; it raises without one): on the
+card one staged copy of all their coded bytes and one launch, on the CPU
+the plain version; :func:`decode_band` is it for one band.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -276,6 +283,32 @@ def decode_band_plain(
     return torch.cat(out)
 
 
+def decode_block_serial(block, k: int) -> np.ndarray:
+    """One Rice block as the decode kernel reads it, code by code: 256
+    codes from bit 0 of ``block`` (bytes), every bit past it 0, so a
+    malformed stream decodes too (the first ``BYTES_CAP`` bytes are all
+    that 256 codes can reach).  Returns (BLOCK_VALUES,) int32."""
+    data = bytes(block[:BYTES_CAP])
+    nbits = 8 * len(data)
+    bits = int.from_bytes(data, "big") << LMAX  # LMAX zero bits past the end
+    out = np.zeros(BLOCK_VALUES, np.int64)
+    p = 0
+    for i in range(BLOCK_VALUES):
+        if p >= nbits:  # only zero bits left: every code from here is 0
+            break
+        win = (bits >> (nbits - p)) & ((1 << LMAX) - 1)  # the LMAX bits from p
+        ones = 0
+        while ones < Q_MAX and (win >> (LMAX - 1 - ones)) & 1:
+            ones += 1
+        if ones == Q_MAX:  # escape: the 32 raw bits after Q_MAX ones
+            out[i] = win & _MASK32
+            p += LMAX
+        else:
+            out[i] = (ones << k) | ((win >> (LMAX - 1 - ones - k)) & ((1 << k) - 1))
+            p += ones + 1 + k
+    return unzigzag(torch.from_numpy(out)).numpy()
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernels (csrc/rice.cu).
 # ---------------------------------------------------------------------------
@@ -308,19 +341,25 @@ def rice_encode_cuda(bands: Sequence[Tensor]) -> Tuple[Tensor, Tensor]:
     return payload, tables
 
 
-def rice_decode_cuda(payload: Tensor, offs: Tensor, lens: Tensor, ks: Tensor) -> Tensor:
-    """Launch ``csrc/rice.cu`` ``rice_decode``: block ``b`` decodes from
-    ``payload[offs[b] : offs[b] + lens[b]]`` with parameter ``ks[b]``.
-    Replaces the reference's ``_decode_chunk`` scan (no TPU kernel).
-    Returns (nb * BLOCK_VALUES,) int32."""
-    dev = _build.check_tensors("rice_decode", [payload, ks], (torch.uint8,))
-    _build.check_tensors("rice_decode", [offs], (torch.int64,))
-    _build.check_tensors("rice_decode", [lens])
-    nb = offs.numel()
-    if nb == 0 or lens.numel() != nb or ks.numel() != nb:
-        raise ValueError(f"rice_decode: {nb} offsets, {lens.numel()} lengths, {ks.numel()} k")
-    out = torch.empty(nb * BLOCK_VALUES, dtype=torch.int32, device=offs.device)
-    _build.launch("rice", "repro_rice_decode", dev, (payload, offs, lens, ks, out), (nb,))
+# the decode table's head: the staged bytes' offsets of every block's
+# byte length, of its k and of the payloads (csrc/rice.cu decode_kernel)
+TABLE_HEAD = 3
+
+
+def rice_decode_cuda(coded: Tensor, table: np.ndarray, nblocks: int) -> Tensor:
+    """Launch ``csrc/rice.cu`` ``rice_decode`` once over the ``nblocks``
+    Rice blocks of the bands that ``table`` describes (as
+    :func:`stage_bands` makes it), from ``coded``, their staged bytes on
+    the card (uint8).  Replaces the reference's ``_decode_chunk`` scan (no
+    TPU kernel) for every band at once.  Returns (nblocks *
+    BLOCK_VALUES,) int32: band ``b``'s values from ``BLOCK_VALUES`` times
+    its first block."""
+    dev = _build.check_tensors("rice_decode", [coded], (torch.uint8,))
+    if nblocks < 1:
+        raise ValueError("rice_decode: needs at least one block (nothing to launch)")
+    out = torch.empty(nblocks * BLOCK_VALUES, dtype=torch.int32, device=coded.device)
+    work = torch.empty(nblocks + 1 + len(table), dtype=torch.int64, device=coded.device)
+    _build.launch("rice", "repro_rice_decode", dev, (coded, out, work), (nblocks,), table)
     _backend.launches.bump("rice_decode")
     return out
 
@@ -421,9 +460,23 @@ def encode_band(x) -> Coded:
     return encode_bands([x])[0]
 
 
-def _check_tables(payload: bytes, k_table, byte_lengths, count: int):
-    """The reference's host checks on a band's tables, plus a k range
-    check; returns (k int64, byte lengths int64) ndarrays."""
+class Checked(NamedTuple):
+    """A band's coding whose tables passed the host checks
+    (:func:`check_band`): k and byte lengths as int64 ndarrays."""
+
+    payload: object  # bytes-like
+    ks: np.ndarray
+    lens: np.ndarray
+    count: int
+
+
+def check_band(payload, k_table, byte_lengths, count: int) -> Checked:
+    """The reference's host checks on a band's tables, plus range checks
+    on k and the byte lengths (what the decode kernel reads); raises
+    ``ValueError``.  A band of no values is not checked, as the
+    reference's ``decode_band`` does not check it."""
+    if count == 0:
+        return Checked(b"", np.zeros(0, np.int64), np.zeros(0, np.int64), 0)
     nb = n_blocks(count)
     ks = np.asarray(k_table).astype(np.int64)
     blens = np.asarray(byte_lengths).astype(np.int64)
@@ -434,28 +487,76 @@ def _check_tables(payload: bytes, k_table, byte_lengths, count: int):
             f"rice payload is {len(payload)} bytes, block lengths sum to "
             f"{int(blens.sum())} (truncated or corrupt stream)"
         )
-    if nb and int(ks.max()) > K_MAX:
+    if int(ks.max()) > K_MAX:
         raise ValueError(f"rice k table holds k={int(ks.max())} > K_MAX={K_MAX} (corrupt stream)")
-    return ks, blens
+    if int(ks.min()) < 0 or int(blens.min()) < 0 or int(blens.max()) > 0xFFFF:
+        raise ValueError("rice tables hold a negative k, or a byte length outside 0..65535 "
+                         "(corrupt stream)")
+    return Checked(payload, ks, blens, count)
+
+
+def stage_bands(bands: Sequence[Checked]) -> Tuple[Tensor, np.ndarray, int]:
+    """Checked bands, none empty -> (their coded bytes staged in one host
+    buffer, pinned where there is a card; the decode table; the blocks in
+    all).  The buffer holds every block's uint16 byte length, then its
+    uint8 k, then from a 16-byte boundary the bands' payloads back to
+    back, and 16 bytes of room."""
+    firsts = np.concatenate([[0], np.cumsum([len(b.ks) for b in bands])])
+    nb = int(firsts[-1])
+    pay_at = -(-3 * nb // 16) * 16
+    host = torch.empty(pay_at + sum(len(b.payload) for b in bands) + 16, dtype=torch.uint8,
+                       pin_memory=torch.cuda.is_available())
+    raw = host.numpy()
+    lens, ks = raw[: 2 * nb].view(np.uint16), raw[2 * nb : 3 * nb]
+    at = pay_at
+    for b, f0, f1 in zip(bands, firsts[:-1], firsts[1:]):
+        lens[f0:f1] = b.lens
+        ks[f0:f1] = b.ks
+        raw[at : at + len(b.payload)] = np.frombuffer(b.payload, np.uint8)
+        at += len(b.payload)
+    table = np.concatenate([[0, 2 * nb, pay_at], firsts, [b.count for b in bands]])
+    return host, table.astype(np.int64), nb
+
+
+def decode_checked(bands: Sequence[Checked], device="cuda") -> List[Tensor]:
+    """:func:`decode_bands` on bands that passed :func:`check_band`: on a
+    CUDA device one copy of their staged bytes to the card and ONE launch
+    for all of them, each band's flat int32 values a view of the one
+    output; on the CPU the plain version, band by band."""
+    dev = _backend.resolve_device(device)
+    out: List[Optional[Tensor]] = [None] * len(bands)
+    live = [i for i, b in enumerate(bands) if b.count]
+    for i, b in enumerate(bands):
+        if not b.count:
+            out[i] = torch.zeros(0, dtype=torch.int32, device=dev)
+        elif dev.type == "cpu":
+            out[i] = decode_band_plain(b.payload, b.ks, b.lens, b.count)[: b.count]
+    if dev.type == "cuda" and live:
+        host, table, nb = stage_bands([bands[i] for i in live])
+        coded = torch.empty(host.numel(), dtype=torch.uint8, device=dev)
+        with _build.device_errors("rice coded bytes to the card"):
+            coded.copy_(host, non_blocking=True)
+        values = rice_decode_cuda(coded, table, nb)
+        for i, first in zip(live, table[TABLE_HEAD:]):
+            at = int(first) * BLOCK_VALUES
+            out[i] = values[at : at + bands[i].count]
+    return out
+
+
+def decode_bands(items: Sequence, device="cuda") -> List[Tensor]:
+    """Inverse of :func:`encode_bands`: each ``(payload, k_table,
+    byte_lengths, count)`` -> its flat int32 tensor of ``count`` on
+    ``device``.  Every band's tables are checked on the host first
+    (:func:`check_band`; the first that fails raises ``ValueError``);
+    then on the card one launch of the decode kernel decodes them all (the
+    default; it raises without a card), on the CPU the plain version."""
+    _backend.resolve_device(device)
+    return decode_checked([check_band(*item) for item in items], device)
 
 
 def decode_band(
     payload: bytes, k_table, byte_lengths, count: int, device="cuda"
 ) -> Tensor:
     """Inverse of :func:`encode_band` -> flat int32 tensor of ``count`` on
-    ``device``: the decode kernel on the card (the default; it raises
-    without one), the plain version on the CPU."""
-    dev = _backend.resolve_device(device)
-    if count == 0:
-        return torch.zeros(0, dtype=torch.int32, device=dev)
-    ks, blens = _check_tables(payload, k_table, byte_lengths, count)
-    if dev.type == "cpu":
-        return decode_band_plain(payload, ks, blens, count)[:count]
-    raw = torch.from_numpy(np.frombuffer(payload, np.uint8).copy()).to(dev)
-    offs = torch.from_numpy(np.concatenate([[0], np.cumsum(blens)[:-1]]).astype(np.int64)).to(dev)
-    out = rice_decode_cuda(
-        raw, offs,
-        torch.from_numpy(blens.astype(np.int32)).to(dev),
-        torch.from_numpy(ks.astype(np.uint8)).to(dev),
-    )
-    return out[:count]
+    ``device``: ``decode_bands([...])[0]``."""
+    return decode_bands([(payload, k_table, byte_lengths, count)], device)[0]

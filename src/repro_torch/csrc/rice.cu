@@ -48,15 +48,46 @@
 // byte bound.
 //
 // rice_decode has no TPU kernel: the reference decodes with a 256-step
-// lax.scan of gathers (_decode_chunk).  Here one thread walks one Rice
-// block's codes through a 64-bit bit buffer refilled byte by byte from
-// the block's own byte range only (bytes past it read as zero, as the
-// reference's zero-padded rows do), so even a malformed stream never
-// reads outside the payload.  A warp decodes 32 blocks into shared
-// memory, then writes them out coalesced.  Decode must read the coded
-// bytes and write 4 bytes per coefficient; one thread per block reads its
-// bytes one at a time, so decode is latency-bound at first.
+// lax.scan of gathers (_decode_chunk).  Here one launch decodes every
+// band of a container, one warp per Rice block, kDecodePerWarp blocks a
+// warp one after another, kWarps warps a tile:
 //
+//  * a tile finds its bytes by the same look-back as the encode (every
+//    block's byte length is known up front, so a tile publishes its byte
+//    count at once; on the H100 a host np.cumsum of the offsets instead
+//    saves ~6% of the device time and costs more host time than the
+//    whole kernel);
+//  * the warp copies a block's bytes, at most 1280 (256 codes of at most
+//    LMAX bits never reach further, whatever a malformed 16-bit length
+//    says), into shared memory with 16-byte loads coalesced across lanes,
+//    as big-endian words, bytes past the length zero (as the reference's
+//    zero-padded rows read); the next block's loads are issued before the
+//    current block is decoded;
+//  * code boundaries, exact, by synchronising rounds (Weissenberger and
+//    Schmidt, Massively Parallel Huffman Decoding on GPUs, ICPP 2018): the
+//    block's 8 x len bits are cut into 32 lane segments; each lane walks
+//    the codes from its start (at first its segment's own start, a guess)
+//    to the first code start at or past its segment's end, which becomes
+//    the next lane's start; until no start moves.  Lane 0 starts exact, so
+//    a round fixes at least one more lane (32 rounds at most).  A Rice
+//    code read from the middle of another resynchronises slowly (its
+//    remainder bits look like any code), so blocks take 3-5 rounds;
+//  * a warp scan of the lanes' code counts gives each lane its first
+//    value; each lane walks its codes once more into the block's 256-value
+//    row in shared memory, skewed so the lanes' stores hit 32 banks (codes
+//    from past the bytes read only zeros: they stay 0, as every value past
+//    the 256th is dropped), and the warp stores the row whole with 16-byte
+//    stores into the band's rows, padded to whole blocks.
+//
+// Bound: memory.  The decode must read the coded bytes and write 4 bytes
+// per value once; this kernel reads the bytes once more than that only
+// where a block's first or last 16-byte chunk is shared with its
+// neighbour, and writes a band's padding.  On the H100 it runs at a
+// quarter of the byte bound: staging, look-back and stores alone take about half its
+// time, the rounds and the value walk a quarter each
+// (tools/rice_decode_anatomy.py).  One thread a block (the anatomy's
+// other form) is slower: 256 dependent steps a thread.
+
 // The per-lane arithmetic (zigzag, bins, costs, code parts, the bit run,
 // the byte windows) is __host__ __device__, so it can be checked off the
 // card as host code.
@@ -73,8 +104,12 @@ constexpr int kWords = kBlock * kLMax / 32;  // 320 words: a block's longest str
 constexpr int kLanes = 32;
 constexpr int kPerLane = kBlock / kLanes;    // 8 values per lane
 constexpr int kBins = kKMax + 5;             // bit lengths 0..27, and one bin for >= 28
-constexpr int kWarps = 8;                    // Rice blocks per tile, one warp each
-constexpr int kDecodeBlocks = 32;            // Rice blocks per decode block
+constexpr int kWarps = 8;                    // warps a tile (encode: one Rice block each)
+constexpr int kBytesCap = kWords * 4;        // 1280: the bytes 256 codes can reach
+constexpr int kStageChunks = kBytesCap / 16 + 2;  // 82: those bytes from a 16-byte
+                                                  // boundary, then a zero chunk
+constexpr int kTableHead = 3;  // the decode table's offsets of lengths, k and payload
+constexpr int kDecodePerWarp = 4;  // Rice blocks a decode warp walks, one after another
 
 // a tile's status word: flag in the top two bits, a byte count below
 constexpr uint64_t kAggregate = uint64_t{1} << 62;  // the tile's own bytes
@@ -197,6 +232,37 @@ __host__ __device__ __forceinline__ uint64_t peek(const unsigned long long* p) {
 #else
   return __atomic_load_n(p, __ATOMIC_ACQUIRE);
 #endif
+}
+
+// The bytes of every tile before `tile`, by decoupled look-back: lane i
+// reads the status word of tile at - i, 32 tiles a step, summing byte
+// counts back to the first inclusive one (waiting on a tile that has not
+// published yet); then the tile publishes its own inclusive count.  Tile 0
+// published its inclusive count before.  Called by one whole warp.
+__device__ __forceinline__ uint64_t look_back(unsigned long long* status, int64_t tile,
+                                              uint32_t agg, int lane) {
+  uint64_t prefix = 0;
+  if (tile == 0) return prefix;
+  int64_t at = tile - 1;
+  for (;;) {
+    const int64_t idx = at - lane;
+    const uint64_t s = idx >= 0 ? peek(status + idx) : kInclusive;
+    const uint32_t incl_lanes = __ballot_sync(~0u, (s >> 62) == 2u);
+    // the lanes that count: up to and including the first inclusive one
+    const uint32_t need = incl_lanes ? incl_lanes ^ (incl_lanes - 1u) : ~0u;
+    if (__ballot_sync(~0u, (s >> 62) == 0u) & need) {  // a tile still to publish
+      __nanosleep(32);
+      continue;
+    }
+    uint64_t v = ((need >> lane) & 1u) ? (s & kCountMask) : uint64_t{0};
+#pragma unroll
+    for (int d = kLanes / 2; d; d >>= 1) v += __shfl_down_sync(~0u, v, d);
+    prefix += __shfl_sync(~0u, v, 0);
+    if (incl_lanes) break;
+    at -= kLanes;
+  }
+  if (lane == 0) publish(status + tile, kInclusive | (prefix + agg));
+  return prefix;
 }
 
 // The bands' table: first block of each band and the total (nbands + 1),
@@ -326,30 +392,9 @@ __global__ void __launch_bounds__(kWarps * kLanes)
   }
 
   // the tile's offset in the payload: the byte counts of every tile
-  // before it, by decoupled look-back (lane i reads tile at - i)
+  // before it
   if (warp == 0) {
-    uint64_t prefix = 0;
-    if (tile > 0) {
-      int64_t at = tile - 1;
-      for (;;) {
-        const int64_t idx = at - lane;
-        const uint64_t s = idx >= 0 ? peek(status + idx) : kInclusive;
-        const uint32_t incl_lanes = __ballot_sync(~0u, (s >> 62) == 2u);
-        // the lanes that count: up to and including the first inclusive one
-        const uint32_t need = incl_lanes ? incl_lanes ^ (incl_lanes - 1u) : ~0u;
-        if (__ballot_sync(~0u, (s >> 62) == 0u) & need) {  // a tile still pricing
-          __nanosleep(32);
-          continue;
-        }
-        uint64_t v = ((need >> lane) & 1u) ? (s & kCountMask) : uint64_t{0};
-#pragma unroll
-        for (int d = kLanes / 2; d; d >>= 1) v += __shfl_down_sync(~0u, v, d);
-        prefix += __shfl_sync(~0u, v, 0);
-        if (incl_lanes) break;
-        at -= kLanes;
-      }
-      if (lane == 0) publish(status + tile, kInclusive | (prefix + agg));
-    }
+    const uint64_t prefix = look_back(status, tile, agg, lane);
     if (lane == 0) tile_base = static_cast<int64_t>(prefix);
   }
   __syncthreads();
@@ -376,46 +421,210 @@ __global__ void __launch_bounds__(kWarps * kLanes)
   if (lane < n - tail) out[tail + lane] = static_cast<uint8_t>(stream_byte(sw, tail + lane));
 }
 
-// kDecodeBlocks Rice blocks per thread block, one thread each.
-__global__ void decode_kernel(const uint8_t* __restrict__ payload, const int64_t* __restrict__ offs,
-                              const int32_t* __restrict__ lens, const uint8_t* __restrict__ ks,
-                              int32_t* __restrict__ out, int64_t nb) {
-  __shared__ int32_t tile[kDecodeBlocks][kBlock + 1];
-  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * kDecodeBlocks;
-  for (int r = threadIdx.x; r < kDecodeBlocks; r += blockDim.x) {
-    const int64_t b = b0 + r;
-    if (b >= nb) continue;
-    const uint8_t* p = payload + offs[b];
-    const int n = lens[b];
-    const int k = ks[b];  // 0..K_MAX, checked on the host
-    uint64_t buf = 0;     // the next stream bits, MSB first
-    int have = 0, pos = 0;
-    for (int i = 0; i < kBlock; ++i) {
-      while (have <= 56) {  // keep >= 57 bits: a code is at most 40
-        const uint64_t byte = pos < n ? p[pos] : 0u;
-        ++pos;
-        buf |= byte << (56 - have);
-        have += 8;
-      }
-      const int ones = __clzll(~buf);  // the unary run (64 when all ones)
-      uint32_t v;
-      if (ones >= kQMax) {  // escape: the 32 bits after Q_MAX ones
-        v = static_cast<uint32_t>(buf >> (64 - kLMax));
-        buf <<= kLMax;
-        have -= kLMax;
-      } else {
-        buf <<= ones + 1;
-        const uint32_t rem = k ? static_cast<uint32_t>(buf >> (64 - k)) : 0u;
-        if (k) buf <<= k;
-        have -= ones + 1 + k;
-        v = (static_cast<uint32_t>(ones) << k) | rem;
-      }
-      tile[r][i] = static_cast<int32_t>((v >> 1) ^ (0u - (v & 1u)));
+// Stream bytes as big-endian words: word j of a 16-byte chunk loaded at
+// stage byte 16 c, its bytes at or past `end` zeroed.
+__host__ __device__ __forceinline__ uint32_t be_word(uint32_t w, int at, int end) {
+  const int keep = end - at;  // bytes of w before the end
+  if (keep <= 0) return 0u;
+  if (keep < 4) w &= (1u << (8 * keep)) - 1u;
+#ifdef __CUDA_ARCH__
+  return __byte_perm(w, 0u, 0x0123);
+#else
+  return __builtin_bswap32(w);
+#endif
+}
+
+// The 32 stream bits from bit P of big-endian words s: the top half of
+// (s[P / 32] : s[P / 32 + 1]) << P % 32.
+__host__ __device__ __forceinline__ uint32_t bits32(const uint32_t* s, int P) {
+  const uint32_t w0 = s[P >> 5], w1 = s[(P >> 5) + 1];
+#ifdef __CUDA_ARCH__
+  return __funnelshift_l(w1, w0, P & 31);
+#else
+  return (P & 31) ? (w0 << (P & 31)) | (w1 >> (32 - (P & 31))) : w0;
+#endif
+}
+
+__host__ __device__ __forceinline__ int leading_ones(uint32_t hi) {
+#ifdef __CUDA_ARCH__
+  return __clz(~hi);
+#else
+  return ~hi ? __builtin_clz(~hi) : 32;
+#endif
+}
+
+// The length of the code at bit P: Q_MAX or more leading ones escape.
+__host__ __device__ __forceinline__ int code_len(const uint32_t* s, int P, int k) {
+  const int ones = leading_ones(bits32(s, P));
+  return ones >= kQMax ? kLMax : ones + 1 + k;
+}
+
+// The code at bit P: its zigzag value and its length.  A code that does
+// not escape fits the 32 bits from P (its q + 1 + k <= 32).
+__host__ __device__ __forceinline__ uint32_t code_value(const uint32_t* s, int P, int k, int& len) {
+  const uint32_t hi = bits32(s, P);
+  const int ones = leading_ones(hi);
+  if (ones >= kQMax) {  // escape: the 32 bits after Q_MAX ones
+    len = kLMax;
+    return (hi << kQMax) | (bits32(s, P + 32) >> (32 - kQMax));
+  }
+  len = ones + 1 + k;
+  return (static_cast<uint32_t>(ones) << k) | (k ? (hi << (ones + 1)) >> (32 - k) : 0u);
+}
+
+// A block's bytes as the warp stages them: its first min(len, 1280)
+// bytes from the 16-byte boundary at or before them (`s` bytes before),
+// as kStageChunks 16-byte chunks, three a lane; those at or past `end`
+// (chunk `nload` and on) read as zero.
+static_assert(3 * kLanes >= kStageChunks, "a lane stages at most three chunks");
+
+struct Staged {
+  const uint4* from;
+  int s, end, nload;
+  uint4 v[3];
+
+  __device__ __forceinline__ Staged(const uint8_t* src, uint32_t n, int lane) {
+    s = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15u);
+    end = s + min(static_cast<int>(n), kBytesCap);
+    nload = (end + 15) >> 4;
+    from = reinterpret_cast<const uint4*>(src - s);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const int c = lane + i * kLanes;
+      v[i] = c < nload ? __ldg(from + c) : make_uint4(0u, 0u, 0u, 0u);
     }
   }
+
+  // into shared memory as big-endian words, the bytes past the block zero
+  __device__ __forceinline__ void store(uint32_t* sw, int lane) const {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const int c = lane + i * kLanes;
+      if (c <= nload)
+        reinterpret_cast<uint4*>(sw)[c] =
+            make_uint4(be_word(v[i].x, 16 * c, end), be_word(v[i].y, 16 * c + 4, end),
+                       be_word(v[i].z, 16 * c + 8, end), be_word(v[i].w, 16 * c + 12, end));
+    }
+  }
+};
+
+// A block's value i sits at row[skew(i)]: a lane's values start near 8 x
+// its lane, and the skew puts the 32 lanes' stores in 32 banks.
+__host__ __device__ __forceinline__ int skew(int i) { return i + (i >> 5); }
+constexpr int kRow = kBlock + kBlock / 32;  // 264
+
+// The decode's table: the byte offsets in `coded` of every block's uint16
+// byte length, of its uint8 k and of the bands' payloads, back to back in
+// block order (kTableHead); then each band's first block and the total
+// (nbands + 1); then each band's value count.  Band b's values go to out
+// from 256 x its first block (a band's last row is written whole: the
+// values past its count are never read).  status: one word per tile,
+// zeroed; ticket: zeroed.  `coded` holds 16 bytes past the last payload
+// byte (the last 16-byte load may reach them; they are never decoded).
+__global__ void __launch_bounds__(kWarps * kLanes)
+    decode_kernel(const uint8_t* __restrict__ coded, const int64_t* __restrict__ table,
+                  int64_t nblocks, int32_t* __restrict__ out,
+                  unsigned long long* __restrict__ status, unsigned int* __restrict__ ticket) {
+  __shared__ __align__(16) uint32_t stage[kWarps][kStageChunks * 4];
+  __shared__ int32_t row[kWarps][kRow];
+  __shared__ uint32_t warp_len[kWarps];
+  __shared__ int64_t tile, tile_base;
+  const int lane = threadIdx.x & (kLanes - 1), warp = threadIdx.x / kLanes;
+  if (threadIdx.x == 0) tile = atomicAdd(ticket, 1u);
   __syncthreads();
-  for (int r = 0; r < kDecodeBlocks && b0 + r < nb; ++r)
-    for (int i = threadIdx.x; i < kBlock; i += blockDim.x) out[(b0 + r) * kBlock + i] = tile[r][i];
+  const int64_t g0 = (tile * kWarps + warp) * kDecodePerWarp;  // this warp's first block
+  const int64_t left = nblocks - g0;  // blocks from g0 on
+  const int blocks = left <= 0 ? 0 : left < kDecodePerWarp ? static_cast<int>(left) : kDecodePerWarp;
+
+  // lane j < blocks: block g0 + j's byte length, k and offset in the warp
+  uint32_t n = 0;
+  int k = 0;
+  if (lane < blocks) {
+    n = reinterpret_cast<const uint16_t*>(coded + table[0])[g0 + lane];
+    k = coded[table[1] + g0 + lane];  // 0..K_MAX, checked on the host
+  }
+  uint32_t at = n;
+#pragma unroll
+  for (int d = 1; d < kDecodePerWarp; d <<= 1) {
+    const uint32_t v = __shfl_up_sync(~0u, at, d);
+    if (lane >= d) at += v;
+  }
+  if (lane == kDecodePerWarp - 1) warp_len[warp] = at;
+  at -= n;
+
+  // the tile's byte count, published at once; the warp's offset in the
+  // tile; the tile's offset in the payloads
+  __syncthreads();
+  uint32_t off = 0, agg = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const uint32_t m = warp_len[w];
+    off += w < warp ? m : 0u;
+    agg += m;
+  }
+  if (threadIdx.x == 0) publish(status + tile, (tile == 0 ? kInclusive : kAggregate) | agg);
+  if (warp == 0) {
+    const uint64_t prefix = look_back(status, tile, agg, lane);
+    if (lane == 0) tile_base = static_cast<int64_t>(prefix);
+  }
+  __syncthreads();
+  if (blocks == 0) return;
+
+  const uint8_t* payload = coded + table[2] + tile_base + off;
+  uint32_t* sw = stage[warp];
+  int32_t* r = row[warp];
+  Staged next(payload + __shfl_sync(~0u, at, 0), __shfl_sync(~0u, n, 0), lane);
+  for (int j = 0; j < blocks; ++j) {
+    // stage block j, then start the loads of block j + 1
+    const Staged cur = next;
+    const int kj = __shfl_sync(~0u, k, j);
+    __syncwarp();  // block j - 1's walks have read the stage
+    cur.store(sw, lane);
+    if (j + 1 < blocks)
+      next = Staged(payload + __shfl_sync(~0u, at, j + 1), __shfl_sync(~0u, n, j + 1), lane);
+    __syncwarp();
+
+    // the rounds: each lane's exact first code and its code count
+    const int base = 8 * cur.s, nbits = 8 * (cur.end - cur.s);
+    const int seg = (nbits + kLanes - 1) / kLanes;
+    const int seg0 = min(lane * seg, nbits), seg1 = min(seg0 + seg, nbits);
+    int start = seg0, count;
+    for (;;) {
+      int p = start;
+      count = 0;
+      while (p < seg1) {
+        p += code_len(sw, base + p, kj);
+        ++count;
+      }
+      int nxt = __shfl_up_sync(~0u, p, 1);
+      if (lane == 0) nxt = 0;
+      const bool moved = nxt != start && seg0 < nbits;  // lanes past the bits decode nothing
+      start = nxt;
+      if (!__any_sync(~0u, moved)) break;
+    }
+    int first = count;  // the index of this lane's first code in the block
+#pragma unroll
+    for (int d = 1; d < kLanes; d <<= 1) {
+      const int v = __shfl_up_sync(~0u, first, d);
+      if (lane >= d) first += v;
+    }
+    first -= count;
+
+    // the values into the block's row, then the row out
+    for (int i = lane; i < kRow; i += kLanes) r[i] = 0;
+    __syncwarp();
+    for (int p = start, i = first; p < seg1 && i < kBlock; ++i) {
+      int len;
+      const uint32_t u = code_value(sw, base + p, kj, len);
+      r[skew(i)] = static_cast<int32_t>((u >> 1) ^ (0u - (u & 1u)));
+      p += len;
+    }
+    __syncwarp();
+    const int32_t* v = r + skew(lane * kPerLane);
+    int4* dst = reinterpret_cast<int4*>(out + (g0 + j) * kBlock + lane * kPerLane);
+    dst[0] = make_int4(v[0], v[1], v[2], v[3]);
+    dst[1] = make_int4(v[4], v[5], v[6], v[7]);
+  }
 }
 
 }  // namespace rice
@@ -460,15 +669,39 @@ extern "C" int repro_rice_encode(int device, uint8_t* payload, uint8_t* tables, 
   return cudaGetLastError();
 }
 
-// Decodes nb blocks to out (nb x 256 int32).
-extern "C" int repro_rice_decode(int device, const uint8_t* payload, const int64_t* offs,
-                                 const int32_t* lens, const uint8_t* ks, int32_t* out,
-                                 int64_t nb, void* stream) {
+// Decodes the `nblocks` Rice blocks of the bands that `table` (host
+// memory, table_len int64: see decode_kernel) describes, from `coded`
+// (device memory), in one launch.  out: nblocks x 256 int32; work:
+// nblocks + 1 + table_len int64 (the tiles' status words, nblocks of
+// room; the ticket; the table on the card).
+// Returns a cudaError_t.
+extern "C" int repro_rice_decode(int device, const uint8_t* coded, int32_t* out, int64_t* work,
+                                 int64_t nblocks, const int64_t* table, int table_len,
+                                 void* stream) {
   cudaError_t e;
   if ((e = cudaSetDevice(device)) != cudaSuccess) return e;
-  const int64_t grid = (nb + kDecodeBlocks - 1) / kDecodeBlocks;
-  if (nb < 1 || grid > 0x7fffffff) return cudaErrorInvalidValue;
-  decode_kernel<<<static_cast<unsigned>(grid), kDecodeBlocks, 0,
-                  static_cast<cudaStream_t>(stream)>>>(payload, offs, lens, ks, out, nb);
+  const int nbands = (table_len - kTableHead - 1) / 2;
+  const int64_t tiles = (nblocks + kWarps * kDecodePerWarp - 1) / (kWarps * kDecodePerWarp);
+  if (nblocks < 1 || nbands < 1 || table_len != kTableHead + 2 * nbands + 1 ||
+      tiles > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  // lengths 2-byte aligned, offsets not negative; every band holds >= 1
+  // value and exactly its blocks, in order
+  if (table[0] < 0 || (table[0] & 1) || table[1] < 0 || table[2] < 0) return cudaErrorInvalidValue;
+  const int64_t* firsts = table + kTableHead;
+  if (firsts[0] != 0 || firsts[nbands] != nblocks) return cudaErrorInvalidValue;
+  for (int i = 0; i < nbands; ++i) {
+    const int64_t count = firsts[nbands + 1 + i];
+    if (count < 1 || firsts[i + 1] - firsts[i] != (count + kBlock - 1) / kBlock)
+      return cudaErrorInvalidValue;
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((e = cudaMemsetAsync(work, 0, (tiles + 1) * sizeof(int64_t), s)) != cudaSuccess) return e;
+  if ((e = cudaMemcpyAsync(work + nblocks + 1, table, table_len * sizeof(int64_t),
+                           cudaMemcpyHostToDevice, s)) != cudaSuccess)
+    return e;
+  decode_kernel<<<static_cast<unsigned>(tiles), kWarps * kLanes, 0, s>>>(
+      coded, work + nblocks + 1, nblocks, out, reinterpret_cast<unsigned long long*>(work),
+      reinterpret_cast<unsigned int*>(work + tiles));
   return cudaGetLastError();
 }

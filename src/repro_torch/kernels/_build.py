@@ -60,7 +60,7 @@ _SIGNATURES = {
     },
     "rice": {
         "repro_rice_encode": [_I] + [_P] * 3 + [_L, _P, _I, _P],
-        "repro_rice_decode": [_I] + [_P] * 5 + [_L, _P],
+        "repro_rice_decode": [_I] + [_P] * 3 + [_L, _P, _I, _P],
     },
     "lift1d": {
         "repro_lift1d_fwd": [_I] + [_P] * 3 + [_I] * 5 + [_P, _I, _P],

@@ -230,6 +230,103 @@ def test_cuda_rice_kernels_match_plain_versions(cuda_device):
     torch.cuda.synchronize(cuda_device)
 
 
+def _plain_bands(blob, dev):
+    """Every band of a container decoded by the plain version on ``dev``."""
+    from repro_torch.codec import container as TC
+
+    h = TC._parse_header(blob)
+    blobs, _ = TC._band_blobs(blob, h)
+    shapes = TC._expected_band_shapes(h.kind, h.shape, h.levels)
+    out = []
+    for b, shp in zip(blobs, shapes):
+        c = TC._band_coding(b, TC._band_count(h, shp))
+        out.append(TR.decode_band_plain(c.payload, c.ks, c.lens, c.count, device=dev)[: c.count])
+    return out
+
+
+def _leaves(pyr):
+    if hasattr(pyr, "ll"):
+        return [pyr.ll] + [b for lvl in pyr.details for b in lvl]
+    return [pyr.approx] + [b for lvl in pyr.details for b in lvl]
+
+
+@pytest.mark.cuda
+def test_cuda_rice_decode_is_one_launch_a_container_equal_to_the_plain_version(cuda_device):
+    from repro_torch.codec import stream as TSTREAM
+
+    rng = np.random.default_rng(13)
+    x2 = torch.from_numpy(_img(rng, (4, 256, 256), -128, 128)).to(cuda_device)
+    x3 = torch.from_numpy(_img(rng, (2, 16, 64, 64), -2048, 2048)).to(cuda_device)
+    for pyr, kw in ((TK.dwt_fwd_2d_multi(x2, levels=5, mode="jpeg2000"), {}),
+                    (TK.dwt_fwd_nd(x3, levels=3, mode="jpeg2000"), dict(ndim=3))):
+        blob = TCODEC.encode_batch(pyr, mode="jpeg2000", **kw)
+        TK.launches.reset()
+        dec = TCODEC.decode_pyramid(blob, device=cuda_device)
+        assert TK.launches.snapshot() == {"rice_decode": 1}
+        for got, plain, band in zip(_leaves(dec.pyramid), _plain_bands(blob, cuda_device),
+                                    _leaves(pyr)):
+            assert torch.equal(got.reshape(-1), plain) and torch.equal(got, band)
+    vol = _img(rng, (12, 40, 36), -2048, 2048)
+    data = b"".join(TSTREAM.encode_volume(vol, slab=4, levels=2, device=cuda_device))
+    frames = list(TSTREAM.iter_frames(data))
+    TK.launches.reset()
+    got = list(TSTREAM.decode_stream(data, device=cuda_device))
+    assert TK.launches.snapshot().get("rice_decode") == len(frames) == 3
+    for frame in frames:
+        dec = TCODEC.decode_pyramid(frame, device=cuda_device)
+        for band, plain in zip(_leaves(dec.pyramid), _plain_bands(frame, cuda_device)):
+            assert torch.equal(band.reshape(-1), plain)
+    assert torch.equal(torch.cat(got).cpu(), torch.from_numpy(vol))
+
+
+def _malformed_blocks(rng):
+    """(bytes, k) of blocks no encoder writes whose tables pass the host
+    checks: all escapes, under 5 bytes, 65,535 bytes of garbage, codes
+    running past the bytes, random bytes at every k."""
+    ff = b"\xff"
+    blocks = [(ff * 1280, 3), (ff * 200, 0)] + [(ff * n, 5) for n in range(5)]
+    blocks += [(rng.bytes(n), int(rng.integers(TR.K_MAX + 1))) for n in range(1, 5)]
+    garbage = rng.bytes(65535)
+    blocks += [(garbage, 0), (garbage, 7), (rng.bytes(40), TR.K_MAX), (ff * 6 + bytes(3), 0)]
+    return blocks + [(rng.bytes(int(rng.integers(1, 1400))), k) for k in range(TR.K_MAX + 1)]
+
+
+@pytest.mark.cuda
+def test_cuda_rice_decode_of_malformed_blocks_equals_the_serial_decode(cuda_device):
+    rng = np.random.default_rng(14)
+    blocks = _malformed_blocks(rng)
+    groups = [[b] for b in blocks] + [blocks]
+    items = [(b"".join(b for b, _ in g), np.array([k for _, k in g], np.uint8),
+              np.array([len(b) for b, _ in g], np.uint16), 256 * len(g) - 17 * (len(g) > 1))
+             for g in groups]
+    TK.launches.reset()
+    got = TR.decode_bands(items, device=cuda_device)
+    assert TK.launches.snapshot() == {"rice_decode": 1}
+    for g, it, v in zip(groups, items, got):
+        want = np.concatenate([TR.decode_block_serial(b, k) for b, k in g])[: it[3]]
+        np.testing.assert_array_equal(v.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_rice_decode_quarantines_a_band_and_decodes_the_rest(cuda_device):
+    from repro_torch.codec import container as TC
+
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy(_img(rng, (2, 64, 64), -128, 128)).to(cuda_device)
+    pyr = TK.dwt_fwd_2d_multi(x, levels=3)
+    blob = bytearray(TCODEC.encode_pyramid(pyr, version=1, checksum=False))
+    h = TC._parse_header(bytes(blob))
+    bad = 2
+    blob[h.body_off + sum(h.blob_lens[:bad])] = 200  # band 2's first k: past K_MAX
+    TK.launches.reset()
+    dec = TCODEC.decode_pyramid_partial(bytes(blob), device=cuda_device)
+    assert TK.launches.snapshot() == {"rice_decode": 1}
+    assert dec.band_status[bad] == "corrupt"
+    assert [s for i, s in enumerate(dec.band_status) if i != bad] == ["ok"] * (len(h.blob_lens) - 1)
+    for i, (got, want) in enumerate(zip(_leaves(dec.pyramid), _leaves(pyr))):
+        assert torch.equal(got, torch.zeros_like(want) if i == bad else want), i
+
+
 @pytest.mark.cuda
 def test_cuda_encoded_engine_serves_what_the_cpu_engine_serves(cuda_device):
     rng = np.random.default_rng(11)

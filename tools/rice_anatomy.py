@@ -54,11 +54,10 @@ sys.path.insert(0, str(ROOT))
 
 COST = ("    // each lane's column of bins", "    nbytes = ((best >> 5) + 7u) >> 3;\n")
 PACK = ("    // this lane's code lengths", "    run.finish(flush);\n")
-LOOKBACK = ("    if (tile > 0) {\n",
-            "      if (lane == 0) publish(status + tile, kInclusive | (prefix + agg));\n    }\n")
+LOOKBACK = ("look_back(status, tile, agg, lane)",
+            "static_cast<uint64_t>(tile) * kWarps * (kWords * 4)")  # padded rows
 STORES = ("  uint8_t* out = payload + dst;\n",
           "  if (lane < n - tail) out[tail + lane] = static_cast<uint8_t>(stream_byte(sw, tail + lane));\n")
-PADDED = "    prefix = static_cast<uint64_t>(tile) * kWarps * (kWords * 4);  // padded rows\n"
 FOLD = ("    uint32_t fold = 0;\n"
         "    for (int j = 0; j < kPerLane; ++j) fold ^= u[j];\n"
         "    fold = __reduce_or_sync(~0u, fold);\n"
@@ -89,7 +88,7 @@ def _swap(source: str, *pairs) -> str:
 
 
 def variants(source: str) -> dict:
-    pack = _cut(source, LOOKBACK, PADDED)
+    pack = _swap(source, LOOKBACK)
     cost = _cut(_cut(pack, PACK), STORES)
     loads = _cut(cost, COST, FOLD)
     return {"loads": loads, "cost": cost, "pack": pack, "as_is": source,
