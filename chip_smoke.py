@@ -17,7 +17,10 @@ Phases (any failure raises and the script exits nonzero):
    the tiled kernels at forced (4, 6) and (64, 64) tiles and at the
    default tile, on shapes of at least 3 x 3 default tiles ((2, 600, 520),
    (2, 517, 389): interior tiles that reflect nothing) and on the full
-   8 x 2048^2 batch.
+   8 x 2048^2 batch; the whole-image kernels also over runs of 1-3 levels
+   in one launch (``fused2d._chain_plan``), at the plan's cluster size and
+   forced to every size from 1 to 16 that the chain admits (and to the
+   two passes for one level).
    Then hold the Rice encode and decode kernels against theirs: payload
    bytes with ``==``, ``k`` and byte-length tables with ``np.array_equal``,
    decoded bands with ``torch.equal``, on adversarial bands (constant,
@@ -35,7 +38,9 @@ Phases (any failure raises and the script exits nonzero):
    reconstructed on the card with ``dwt_inv_2d_multi`` and must equal its
    request after the crop; each bucket's first response must equal the
    plain oracle.  The launch counters are reset just before this phase
-   and read just after it: every 2-D kernel must have launched.
+   and read just after it: every 2-D kernel must have launched, and each
+   run of whole-image levels (one a bucket) once each way: ``whole2d_fwd``
+   once per batch, ``whole2d_inv`` once per reconstruction.
 4. Encoded serve, the same engine with ``encode_response=True`` on half
    random and half smooth 8-bit images: every batch container is decoded
    once on the card (``codec.decode_batch``), inverse-transformed and
@@ -44,8 +49,9 @@ Phases (any failure raises and the script exits nonzero):
    the same bands; ``ProgressiveServeRoute`` thumbnails and full tiers are
    checked; no encode may degrade or quarantine.  The counters are reset
    just before and read just after: all six kernels must have launched,
-   ``rice_encode`` once per encoded batch and ``rice_decode`` once per
-   decoded container.  One 2048^2 x 8 encoded step is then timed phase by
+   ``rice_encode`` once per encoded batch, ``rice_decode`` once per
+   decoded container, ``whole2d_fwd`` once per batch and ``whole2d_inv``
+   once per client inverse.  One 2048^2 x 8 encoded step is then timed phase by
    phase.
 5. 1-D parity: the windowed 1-D kernels (``lift1d.cu``) and the row pass
    (``whole2d.cu``, the 1-D fallback) against their plain versions with
@@ -111,7 +117,9 @@ Phases (any failure raises and the script exits nonzero):
    a WZRS slab's level 3), at cdf22's level 3 and at the three-pass
    level 1 in cdf22), beside its plain version and its bound, comparing
    outputs once more; for each 2-D level its tile and the kernel's device
-   ms, for each slab level which plane path ran and the device ms of each
+   ms (a whole-image level also its host us a call and cluster size, and
+   each run of whole levels of the serve path, one bucket's batch and one
+   request, its events, device and host time as one launch), for each slab level which plane path ran and the device ms of each
    kernel it launched (``torch.profiler``), for each whole-volume level
    its device ms, the host's us per wrapper call and the cluster size.
 10. Print the ``{"kernels": [...]}`` line, the card line, and last the
@@ -228,6 +236,36 @@ def _tiled_check(label, xt, want, mode, th, tw, sch) -> None:
                     [T.inv2d_tiled_plain(*want, mode, th, tw, sch)])
 
 
+def _chain_check(label, xt, mode, sch, dev, counts) -> None:
+    """The whole-image chain kernels over runs of 1-3 levels of ``xt``, at
+    the plan's launches and forced to every cluster size from 1 to 16 the
+    chain admits (and the two passes for one level), against the plain
+    chain."""
+    from repro_torch.kernels import fused2d as F
+
+    b, h, w = xt.shape
+    levels, hh, ww = 0, h, w
+    while hh >= 2 and ww >= 2 and levels < 3:
+        levels, hh, ww = levels + 1, (hh + 1) // 2, (ww + 1) // 2
+    for n in range(1, levels + 1):
+        ll, details = F.fwd2d_chain_plain(xt, n, mode, sch)
+        want = [ll] + [t for lvl in details for t in lvl]
+        back = [xt]
+        sizes = [None] + [c for c in range(0 if n == 1 else 1, F.CLUSTER_MAX + 1)
+                          if c == 0 or F.chain_fits(h, w, n, c, dev)]
+        for c in sizes:
+            lab = f"{label}/chain{n}/c={'plan' if c is None else c}"
+            fplan, iplan = (F._chain_plan(b, h, w, n, sch, mode, inv, xt.device, c)
+                            for inv in (False, True))
+            got_ll, got = F._run_fwd(xt, fplan)
+            _equal_or_raise("whole2d_fwd " + lab, [got_ll] + [t for lvl in got for t in lvl],
+                            want)
+            _equal_or_raise("whole2d_inv " + lab, [F._run_inv(ll, details[::-1], iplan)], back)
+            counts["whole2d_chains"] += 1
+            key = "plan" if c is None else str(c)
+            counts["whole2d_by_cluster"][key] = counts["whole2d_by_cluster"].get(key, 0) + 1
+
+
 def parity_sweep(rng, dev) -> dict:
     from repro_torch.core import schemes as S
     from repro_torch.kernels import backend as B
@@ -235,7 +273,8 @@ def parity_sweep(rng, dev) -> dict:
 
     shapes = [(2, 2), (3, 3), (7, 9), (33, 17), (257, 383), (512, 512)]
     counts = {k: 0 for k in KERNELS_2D}
-    counts.update(tiled2d_default_tile=0, tiled2d_interior_tiles=0)
+    counts.update(tiled2d_default_tile=0, tiled2d_interior_tiles=0, whole2d_chains=0,
+                  whole2d_by_cluster={})
     for sch in SCHEMES:
         sc = S.get_scheme(sch)
         for mode in MODES:
@@ -255,6 +294,8 @@ def parity_sweep(rng, dev) -> dict:
                                 [F._inv2d_math(*want, mode, sch)])
                 counts["whole2d_fwd"] += 1
                 counts["whole2d_inv"] += 1
+                if max(h, w) <= 1000:
+                    _chain_check(label, xt, mode, sc, dev, counts)
                 if not (sc.can_window(h) and sc.can_window(w)) or max(h, w) > 1000:
                     continue
                 default = B.pick_tile(h, w, sc.halo, dev)
@@ -486,6 +527,7 @@ def serve(rng, dev, n_requests) -> dict:
     for k in KERNELS_2D:
         if counts.get(k, 0) <= 0:
             raise AssertionError(f"kernel {k} never launched on the serve path: {counts}")
+    _check_whole_runs("serve", fwd_counts, counts, len(lat_ms), served)
     plans = {
         f"{h}x{w}": [K.plan_2d(h >> lv, w >> lv, dev, SCHEME) for lv in range(LEVELS)]
         for h, w in BUCKETS
@@ -527,6 +569,28 @@ def serve(rng, dev, n_requests) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 4: the encoded-response serve route.
 # ---------------------------------------------------------------------------
+
+
+def _whole_runs(bucket) -> int:
+    """The runs of whole-image levels in a bucket's pyramid: each is one
+    launch each way."""
+    from repro_torch.core import schemes as S
+    from repro_torch.kernels import fused2d as F
+
+    dims = F._level_dims(*bucket, LEVELS)
+    return sum(not tiled for tiled, _ in F.level_runs(dims, S.get_scheme(SCHEME)))
+
+
+def _check_whole_runs(label, fwd_counts, counts, batches, served) -> None:
+    """One ``whole2d_fwd`` launch per batch and one ``whole2d_inv`` per
+    client inverse, for each run of whole levels its bucket has."""
+    want_inv = sum(_whole_runs(r.bucket) for r in served)
+    got_fwd = fwd_counts.get("whole2d_fwd", 0)
+    got_inv = counts.get("whole2d_inv", 0) - fwd_counts.get("whole2d_inv", 0)
+    if any(_whole_runs(b) != 1 for b in BUCKETS) or got_fwd != batches or got_inv != want_inv:
+        raise AssertionError(f"{label}: whole2d_fwd {got_fwd} launches for {batches} batches, "
+                             f"whole2d_inv {got_inv} for {want_inv} whole runs of the client's "
+                             f"inverses: want one launch per run")
 
 
 def smooth_image(rng, h, w):
@@ -674,6 +738,7 @@ def serve_encoded(rng, dev, n_requests) -> dict:
     for k in KERNELS:
         if counts.get(k, 0) <= 0:
             raise AssertionError(f"kernel {k} never launched on the encoded serve path: {counts}")
+    _check_whole_runs("encoded serve", encode_counts, counts, len(lat_ms), served)
     if encode_counts.get("rice_encode") != len(lat_ms):
         raise AssertionError(f"{encode_counts.get('rice_encode')} rice_encode launches for "
                              f"{len(lat_ms)} encoded batches: want one per batch")
@@ -780,10 +845,15 @@ def time_kernels(rng, dev) -> list:
             e["bytes"] += nbytes
             e["ops"] += int(ops_per_sample * SLOTS * h * w)
             e["err"] = max(e["err"], err)
-            e["levels"].append({"shape": [SLOTS, h, w], "ms": ms, "plain_ms": pms,
-                                "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
-                                "tile": [th, tw] if tiled else None,
-                                "device_ms": _pass_ms(kern)})
+            lv = {"shape": [SLOTS, h, w], "ms": ms, "plain_ms": pms,
+                  "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+                  "tile": [th, tw] if tiled else None, "device_ms": _pass_ms(kern)}
+            if not tiled:
+                lv["host_us"] = _host_us(kern, dev)
+                lv["cluster"] = F.chain_launches(SLOTS, h, w, 1, dev)[0][1]
+            e["levels"].append(lv)
+    for name, chains in time_chains(rng, dev).items():
+        per[name]["chains"] = chains
     out = []
     for name in KERNELS_2D:
         source, replaces = KERNELS[name]
@@ -793,7 +863,60 @@ def time_kernels(rng, dev) -> list:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": 0, "max_abs_err": e["err"], "ms": e["ms"], "plain_ms": e["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "levels": e["levels"],
+            **({"chains": e["chains"]} if "chains" in e else {}),
         })
+    return out
+
+
+# the runs of whole-image levels of the serve path: each bucket's batch
+# and the client's one-request inverse
+WHOLE2D_CHAINS = (
+    ("2048^2 batch, level 5", SLOTS, 2048),
+    ("1024^2 batch, levels 4-5", SLOTS, 1024),
+    ("2048^2 request, level 5", 1, 2048),
+    ("1024^2 request, levels 4-5", 1, 1024),
+)
+
+
+def time_chains(rng, dev) -> dict:
+    """The whole-image kernels over each run of whole levels of the serve
+    path's pyramids (one launch each way), checked once more against the
+    plain chain: events ms, device ms, host us a call, the cluster size,
+    the plain chain's ms and the bound (the first level's samples read
+    once and every band written once)."""
+    from repro_torch.core import schemes as S
+    from repro_torch.kernels import fused2d as F
+
+    sch = S.get_scheme(SCHEME)
+    out = {"whole2d_fwd": [], "whole2d_inv": []}
+    for label, b, side in WHOLE2D_CHAINS:
+        dims = F._level_dims(side, side, LEVELS)
+        whole = [hw for hw in dims if F.plan_2d(*hw, dev, SCHEME) == "whole-cuda"]
+        levels = len(whole)
+        x = torch.from_numpy(rng.integers(-128, 128, (b,) + whole[0], dtype=np.int32)).to(dev)
+        ll, details = F.fwd2d_chain_plain(x, levels, MODE, sch)
+        want = [ll] + [t for lvl in details for t in lvl]
+        runs = F.chain_launches(b, *whole[0], levels, dev)
+        # x read once, every band written once: the bands of a run partition
+        # its first level's samples
+        nbytes = 2 * b * whole[0][0] * whole[0][1] * 4
+        for name, kern, plain, ref in (
+            ("whole2d_fwd", lambda: F.fwd2d_chain_cuda(x, levels, MODE, sch),
+             lambda: F.fwd2d_chain_plain(x, levels, MODE, sch), want),
+            ("whole2d_inv", lambda: F.inv2d_chain_cuda(ll, details[::-1], MODE, sch),
+             lambda: F.inv2d_chain_plain(ll, details[::-1], MODE, sch), [x]),
+        ):
+            got = kern()
+            if name == "whole2d_fwd":
+                got = [got[0]] + [t for lvl in got[1] for t in lvl]
+            err = _equal_or_raise(f"{name} {label}", [got] if name == "whole2d_inv" else got,
+                                  ref)
+            out[name].append({
+                "label": label, "shape": [b, *whole[0]], "levels": levels,
+                "launches": [list(r) for r in runs], "ms": _median_ms(kern, 20),
+                "device_ms": _device_ms(kern, len(runs)), "host_us": _host_us(kern, dev),
+                "plain_ms": _median_ms(plain, 5), "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+                "err": err})
     return out
 
 
@@ -1985,13 +2108,22 @@ def main() -> int:
         for key, sh in shapes_1d[k["name"]].items():
             print(f"  {k['name']} ({key}) {sh['shape']} x 4 levels: {sh['ms']:.4f} ms (plain "
                   f"{sh['plain_ms']:.3f} ms, bound {sh['bound_ms']:.4f} ms)")
+    chains_2d = {}
     for k in kernels:
+        for ch in k.pop("chains", []):
+            chains_2d.setdefault(k["name"], []).append(ch)
+            print(f"  {k['name']} {ch['label']} {ch['shape']} x {ch['levels']} levels: "
+                  f"{ch['ms']:.4f} ms (device {_fmt_ms(ch['device_ms'])} ms, host "
+                  f"{ch['host_us']:.1f} us a call, launches (levels, cluster) {ch['launches']}; "
+                  f"plain {ch['plain_ms']:.3f} ms, bound {ch['bound_ms']:.6f} ms)")
         for lv in k.pop("levels"):
             if "tile" in lv:  # a 2-D kernel's level
                 tile = f", tile {lv['tile']}" if lv["tile"] else ""
+                whole = (f", host {lv['host_us']:.1f} us a call, cluster {lv['cluster']}"
+                         if "host_us" in lv else "")
                 dev_ms = ", ".join(f"{a} {_fmt_ms(b)}" for a, b in lv["device_ms"].items())
                 print(f"  {k['name']} {lv['shape']}: {lv['ms']:.4f} ms (plain {lv['plain_ms']:.3f}"
-                      f" ms, bound {lv['bound_ms']:.4f} ms{tile}; device: {dev_ms})")
+                      f" ms, bound {lv['bound_ms']:.4f} ms{tile}{whole}; device: {dev_ms})")
             elif "set" in lv:  # the decode of one container's bands, one launch
                 dev_ms = ", ".join(f"{a} {_fmt_ms(b)}" for a, b in lv["device_ms"].items())
                 print(f"  {k['name']} {lv['set']}: {lv['ms']:.4f} ms (device: {dev_ms}; "
@@ -2027,7 +2159,7 @@ def main() -> int:
         record = {"card": card, "torch": torch.__version__, "seed": args.seed,
                   "parity_cases": checks, "serve": srv, "serve_encoded": enc,
                   "path_1d": lib, "kernels_1d_shapes": shapes_1d, "path_3d": vp,
-                  "kernels_3d_levels": levels_3d,
+                  "kernels_3d_levels": levels_3d, "whole2d_chains": chains_2d,
                   "kernels": kernels + kernels_1d + kernels_3d}
         out = pathlib.Path(args.json_out)
         out.parent.mkdir(parents=True, exist_ok=True)

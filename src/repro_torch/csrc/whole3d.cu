@@ -42,11 +42,7 @@
 // large volumes to slab3d.cu.
 #include <cooperative_groups.h>
 
-#include <map>
-#include <mutex>
-#include <set>
-#include <tuple>
-
+#include "cluster.cuh"
 #include "passes.cuh"
 #include "terms.cuh"
 
@@ -60,38 +56,6 @@ using lift2d::TermStep;
 using lift2d::with_terms;
 
 constexpr int kVolumeThreads = 1024;
-constexpr int kMaxCluster = 16;  // 8 is portable; 9-16 need the non-portable opt-in
-
-// Walks the entries (a, b, k) of an (unbounded, nb, nk) box, k fastest,
-// one entry per thread and step of blockDim.x: the thread's start and the
-// block's stride are split into (a, b, k) once, then each step adds them
-// with carries — no division per entry.
-struct Walk {
-  int a, b, k, da, db, dk, nb, nk;
-  __device__ Walk(int nb_, int nk_) : nb(nb_), nk(nk_) {
-    split(threadIdx.x, &a, &b, &k);
-    split(blockDim.x, &da, &db, &dk);
-  }
-  __device__ void split(int v, int* x, int* y, int* z) const {
-    *z = v % nk;
-    v /= nk;
-    *y = v % nb;
-    *x = v / nb;
-  }
-  __device__ void next() {
-    k += dk;
-    b += db;
-    a += da;
-    if (k >= nk) {
-      k -= nk;
-      ++b;
-    }
-    if (b >= nb) {
-      b -= nb;
-      ++a;
-    }
-  }
-};
 
 // One block's share of a (D, H, W) volume: the row pairs
 // [rank * P / c, (rank + 1) * P / c) of every slice, P = ceil(H / 2), so
@@ -243,63 +207,6 @@ __global__ void __launch_bounds__(kVolumeThreads)
   }
 }
 
-// A cluster launch's attributes are set when a launch or a query first
-// needs them on a device (the dynamic shared memory of the largest share
-// so far; the non-portable cluster sizes where c > 8), and each (c, bytes)
-// is asked once of cudaOccupancyMaxActiveClusters: `clusters` is how many
-// such clusters the card co-schedules, 0 where it cannot run one.
-template <class K>
-cudaError_t cluster_room(K kernel, int device, int nc, const cudaLaunchConfig_t& cfg,
-                         int* clusters) {
-  static std::mutex mu;
-  static std::map<std::pair<const void*, int>, size_t> allowed;
-  static std::set<std::pair<const void*, int>> non_portable;
-  static std::map<std::tuple<const void*, int, int, size_t>, int> rooms;
-  const std::lock_guard<std::mutex> lock(mu);
-  const void* k = reinterpret_cast<const void*>(kernel);
-  const size_t bytes = cfg.dynamicSmemBytes;
-  const auto room = rooms.find(std::make_tuple(k, device, nc, bytes));
-  if (room != rooms.end()) {
-    *clusters = room->second;
-    return cudaSuccess;
-  }
-  cudaError_t e = cudaSuccess;
-  const auto key = std::make_pair(k, device);
-  const auto it = allowed.find(key);
-  if (it == allowed.end() || it->second < bytes) {
-    if ((e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  static_cast<int>(bytes))) != cudaSuccess)
-      return e;
-    allowed[key] = bytes;
-  }
-  if (nc > 8 && !non_portable.count(key)) {
-    if ((e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
-        cudaSuccess)
-      return e;
-    non_portable.insert(key);
-  }
-  if ((e = cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg)) != cudaSuccess) return e;
-  rooms[std::make_tuple(k, device, nc, bytes)] = *clusters;
-  return cudaSuccess;
-}
-
-// The launch of `blocks` blocks in clusters of nc, each block holding a
-// share of `bytes` (attr is the configuration's one attribute).
-void cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, unsigned blocks, int nc,
-                    size_t bytes, cudaStream_t stream) {
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = nc;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  *cfg = {};
-  cfg->gridDim = dim3(blocks);
-  cfg->blockDim = dim3(kVolumeThreads);
-  cfg->dynamicSmemBytes = bytes;
-  cfg->stream = stream;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-}
-
 // A configuration the card cannot co-schedule is refused with its error
 // code, never run another way.
 template <bool INVERSE>
@@ -307,20 +214,11 @@ cudaError_t launch_cluster(int device, int32_t* x, const Bands8& b, int B, int D
                            int nc, const Cascade& c, cudaStream_t stream) {
   if (nc < 1 || nc > kMaxCluster || nc > (H + 1) >> 1) return cudaErrorInvalidValue;
   unsigned blocks;
-  cudaError_t e = flat_grid((long long)B * nc, &blocks);
+  const cudaError_t e = flat_grid((long long)B * nc, &blocks);
   if (e != cudaSuccess) return e;
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg;
-  cluster_config(&cfg, &attr, blocks, nc, (size_t)D * cluster_rows(H, nc) * W * sizeof(int32_t),
-                 stream);
-  int room = 0;
-  e = cluster_room(cluster_kernel<INVERSE>, device, nc, cfg, &room);
-  if (e == cudaSuccess && room < 1) e = cudaErrorInvalidConfiguration;
-  if (e == cudaSuccess) e = cudaLaunchKernelEx(&cfg, cluster_kernel<INVERSE>, x, b, D, H, W,
-                                               pack_terms(c));
-  if (e == cudaSuccess) return cudaGetLastError();
-  cudaGetLastError();  // a refused configuration leaves no error behind for the next launch
-  return e;
+  return launch_clusters(cluster_kernel<INVERSE>, device, blocks, nc, kVolumeThreads,
+                         (size_t)D * cluster_rows(H, nc) * W * sizeof(int32_t), stream, x, b, D,
+                         H, W, pack_terms(c));
 }
 
 }  // namespace passes
@@ -333,22 +231,8 @@ using namespace passes;
 // (kernels/fused3d.py) asks before it picks a cluster size.  Returns a
 // cudaError_t code (a refusal leaves no error behind).
 extern "C" int repro_whole3d_cluster_room(int device, int cluster, int bytes, int* clusters) {
-  *clusters = 0;
-  if (cluster < 1 || cluster > kMaxCluster || bytes < 0) return cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg;
-  cluster_config(&cfg, &attr, cluster, cluster, bytes, nullptr);
-  int fwd = 0, inv = 0;
-  if ((e = cluster_room(cluster_kernel<false>, device, cluster, cfg, &fwd)) == cudaSuccess)
-    e = cluster_room(cluster_kernel<true>, device, cluster, cfg, &inv);
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return e;
-  }
-  *clusters = fwd < inv ? fwd : inv;
-  return cudaSuccess;
+  return cluster_room_pair(cluster_kernel<false>, cluster_kernel<true>, device, cluster,
+                           kVolumeThreads, bytes, clusters);
 }
 
 // Forward level: x (B, D, H, W) -> bands b0..b7 (code order).  When

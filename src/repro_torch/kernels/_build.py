@@ -53,6 +53,9 @@ _SIGNATURES = {
         "repro_whole_inv": [_I] + [_P] * 8 + [_I] * 7 + [_P, _I, _P],
         "repro_rows_fwd": [_I] + [_P] * 4 + [_I] * 4 + [_P, _I, _P],
         "repro_rows_inv": [_I] + [_P] * 4 + [_I] * 4 + [_P, _I, _P],
+        "repro_whole2d_cluster_fwd": [_I] + [_P] * 2 + [_I] * 5 + [_P, _I, _P],
+        "repro_whole2d_cluster_inv": [_I] + [_P] * 2 + [_I] * 5 + [_P, _I, _P],
+        "repro_whole2d_cluster_room": [_I, _I, _I, _P],
     },
     "tiled2d": {
         "repro_tiled_fwd": [_I] + [_P] * 5 + [_I] * 6 + [_P, _I, _P],

@@ -54,6 +54,7 @@ from repro_torch.core.lifting import PyramidND, check_levels_nd
 from repro_torch.kernels import _build
 from repro_torch.kernels import backend as _backend
 from repro_torch.kernels import fused2d as _f2d
+from repro_torch.kernels.fused2d import CLUSTER_MAX, CLUSTER_SIZES
 from repro_torch.kernels import ops as _ops
 from repro_torch.kernels.ops import _compute_dtype
 
@@ -196,16 +197,6 @@ def inv3d_slab_plain(bands: Sequence[Tensor], mode: str, td: int, scheme="cdf53"
 # ---------------------------------------------------------------------------
 
 
-# A cluster of at most 16 blocks holds one volume (8 is the portable
-# size; 9-16 need the card's non-portable opt-in).
-CLUSTER_MAX = 16
-CLUSTER_SIZES = (1, 2, 4, 8, 16)
-# a block's share is cut no finer than this many samples: below it the
-# cluster barriers of a finer split cost more than the block's lifting
-# saves (the c sweep of tools/whole3d_anatomy.py, PERF.md)
-CLUSTER_MIN_SHARE = 256
-
-
 def cluster_rows(h: int, c: int) -> int:
     """Rows of the largest share of an H-row slice split over a cluster
     of ``c`` blocks (``csrc/whole3d.cu`` cluster_rows): the ceil(h/2) row
@@ -218,50 +209,24 @@ def cluster_fits(d: int, h: int, w: int, c: int, device=None) -> bool:
     at least one row pair a block (c <= ceil(h/2)), each block's share
     (:func:`cluster_rows` rows of every slice) within one block's shared
     memory, and the card co-schedules such a cluster
-    (:func:`_card_admits`)."""
+    (:func:`~repro_torch.kernels.fused2d.card_admits`)."""
     share = cluster_rows(h, c) * d * w
     return (1 <= c <= min(CLUSTER_MAX, _cdiv(h, 2))
             and share <= _backend.whole3d_budget_elems(device)
             and _card_admits(c, 4 * share, device))
 
 
-def _card_admits(c: int, nbytes: int, device) -> bool:
-    """Whether the card runs clusters of ``c`` blocks of ``nbytes`` shared
-    memory each (``cudaOccupancyMaxActiveClusters`` through
-    ``repro_whole3d_cluster_room``), asked once per device and size.  For
-    the CPU, the H100's answer: every size up to 16 at any share within a
-    block's budget."""
-    if device is None or torch.device(device).type != "cuda":
-        return True
-    dev = torch.device(device)
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return _cluster_room(index, c, nbytes) > 0
-
-
-@functools.lru_cache(maxsize=None)
-def _cluster_room(index: int, c: int, nbytes: int) -> int:
-    room = ctypes.c_int(0)
-    rc = _build.library("whole3d").repro_whole3d_cluster_room(index, c, nbytes,
-                                                             ctypes.addressof(room))
-    return room.value if rc == 0 else 0
+_card_admits = functools.partial(_f2d.card_admits, "whole3d")
 
 
 def _pick_cluster(b: int, d: int, h: int, w: int, device) -> int:
-    """Blocks per volume of the whole-volume cluster path, 0 for none.
-
-    The smallest power of two c in ``CLUSTER_SIZES`` that
-    :func:`cluster_fits`; then doubled while the doubled size fits,
-    ``b * c`` blocks leave half the card's SMs idle and each share keeps
-    ``CLUSTER_MIN_SHARE`` samples.
-    """
-    fits = [c for c in CLUSTER_SIZES if cluster_fits(d, h, w, c, device)]
-    if not fits:
-        return 0
-    c, sms = fits[0], _backend.budgets(device)["sms"]
-    while (2 * c in fits and 2 * b * c <= sms
-           and cluster_rows(h, 2 * c) * d * w >= CLUSTER_MIN_SHARE):
-        c *= 2
-    return c
+    """Blocks per volume of the whole-volume cluster path, 0 for none
+    (:func:`~repro_torch.kernels.fused2d.pick_cluster` over
+    :func:`cluster_fits`, a share being the block's rows of every slice),
+    the batch's blocks held to the card's SMs."""
+    return _f2d.pick_cluster(lambda c: cluster_fits(d, h, w, c, device), b,
+                             lambda c: cluster_rows(h, c) * d * w,
+                             _backend.budgets(device)["sms"])
 
 
 def volume_geometry(

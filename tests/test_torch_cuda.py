@@ -153,6 +153,114 @@ def test_cuda_pyramid_launches_every_kernel(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("name", SCHEMES)
+def test_cuda_whole2d_chain_matches_plain_versions(name, mode, cuda_device):
+    """The whole-image cluster kernels over chains of 1-3 levels at every
+    cluster size a chain admits (and the plan's own, and the two passes
+    for one level): 2 x 2, 3 x 3, odd sizes, H < 2c, B from 1 to 8, int32
+    extremes, and an image whose rows start 4 bytes past a 16-byte
+    boundary."""
+    rng = np.random.default_rng(31)
+    sch = TS.get_scheme(name)
+    shapes = [(1, 2, 2), (2, 3, 3), (3, 7, 9), (8, 128, 128), (1, 130, 3), (2, 33, 17),
+              (4, 64, 5), (5, 40, 41)]
+    seen = set()
+    for shp in shapes:
+        bsz, h, w = shp
+        for kind in ("rand", "min", "max") if shp in ((2, 3, 3), (2, 33, 17)) else ("rand",):
+            x = _img(rng, shp) if kind == "rand" else np.full(
+                shp, I32.min if kind == "min" else I32.max, np.int32)
+            xt = torch.from_numpy(x).to(cuda_device)
+            hh, ww, levels = h, w, 0
+            while hh >= 2 and ww >= 2 and levels < 3:
+                levels, hh, ww = levels + 1, (hh + 1) // 2, (ww + 1) // 2
+            for n in range(1, levels + 1):
+                ll, details = TF.fwd2d_chain_plain(xt, n, mode, name)
+                sizes = [None] + [c for c in range(0 if n == 1 else 1, 17)
+                                  if c == 0 or TF.chain_fits(h, w, n, c, cuda_device)]
+                for c in sizes:
+                    for shift in (0, 1) if c is None else (0,):
+                        src = _shifted(xt, shift)
+                        fplan, iplan = (TF._chain_plan(bsz, h, w, n, sch, mode, inv,
+                                                       xt.device, c) for inv in (False, True))
+                        got_ll, got = TF._run_fwd(src, fplan)
+                        assert torch.equal(got_ll, ll), (shp, kind, n, c)
+                        for g, want in zip(got, details):
+                            assert all(torch.equal(a, b) for a, b in zip(g, want)), (shp, n, c)
+                        back = TF._run_inv(ll, details[::-1], iplan)
+                        assert torch.equal(back, xt), (shp, kind, n, c)
+                        seen.add(c)
+    torch.cuda.synchronize(cuda_device)
+    assert seen >= set(range(17)) | {None}
+
+
+@pytest.mark.cuda
+def test_cuda_whole2d_refuses_what_it_cannot_run(cuda_device):
+    """A cluster size the chain or the card cannot take raises; nothing
+    falls back to fewer blocks or to the plain version.  A 3 x 60001
+    cdf22 image (rows longer than a block's shared memory) keeps the two
+    passes; a 60001 x 3 one splits its rows over 16 blocks."""
+    from repro_torch.kernels import _build
+
+    sch = TS.get_scheme("cdf53")
+
+    def forced(t, levels, c):
+        plan = TF._chain_plan(*t.shape, levels, sch, "paper", False, t.device, c)
+        return TF._run_fwd(t, plan)
+
+    x = torch.zeros((1, 5, 8), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(_build.KernelLaunchError):  # 16 blocks, 3 row groups
+        forced(x, 1, 16)
+    with pytest.raises(_build.KernelLaunchError):  # 2 levels: groups of 4 rows, 2 of them
+        forced(x, 2, 3)
+    with pytest.raises(_build.KernelLaunchError):
+        forced(x, 1, 17)
+    big = torch.zeros((1, 300, 1000), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(_build.KernelLaunchError):  # shares of 600,000 bytes
+        forced(big, 1, 2)
+    assert not TF.chain_fits(300, 1000, 1, 2, cuda_device)
+    assert all(TF.chain_fits(128, 128, 2, c, cuda_device) for c in TF.CLUSTER_SIZES)
+    rng = np.random.default_rng(37)
+    for shp, runs in (((1, 3, 60001), ((1, 0),)), ((1, 60001, 3), ((1, 16),))):
+        assert TF.chain_launches(*shp, 1, cuda_device) == runs
+        xt = torch.from_numpy(_img(rng, shp)).to(cuda_device)
+        want = TF._fwd2d_math(xt, "paper", "cdf22")
+        TK.launches.reset()
+        for a, b in zip(TF.fwd2d_whole_cuda(xt, "paper", "cdf22"), want):
+            assert torch.equal(a, b)
+        assert torch.equal(TF.inv2d_whole_cuda(*want, "paper", "cdf22"), xt)
+        assert TK.launches.snapshot() == {"whole2d_fwd": 1, "whole2d_inv": 1}
+    torch.cuda.synchronize(cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,side,levels,whole,launches", [
+    ("cdf53", 1024, 5, 2, 1), ("cdf53", 2048, 5, 1, 1), ("cdf53", 256, 5, 4, 1),
+    ("cdf22", 1024, 5, 5, 2),  # level 1 past 16 blocks: two passes, then one chain
+])
+def test_cuda_pyramid_runs_its_whole_levels_in_one_launch(name, side, levels, whole, launches,
+                                                          cuda_device):
+    """Every maximal run of whole-image levels is one launch each way (a
+    level no cluster holds one more), bit-equal to the plain pyramid."""
+    rng = np.random.default_rng(41)
+    x = torch.from_numpy(_img(rng, (2, side, side), -128, 128)).to(cuda_device)
+    assert sum(TK.plan_2d(side >> k, side >> k, cuda_device, name) == "whole-cuda"
+               for k in range(levels)) == whole
+    TK.launches.reset()
+    pyr = TK.dwt_fwd_2d_multi(x, levels=levels, scheme=name, mode="jpeg2000")
+    assert TK.launches.snapshot()["whole2d_fwd"] == launches
+    want = TF._lift.dwt_fwd_2d_multi(x, levels=levels, scheme=name, mode="jpeg2000",
+                                     checked=False)
+    assert torch.equal(pyr.ll, want.ll)
+    for a, b in zip(pyr.details, want.details):
+        assert all(torch.equal(p, q) for p, q in zip(a, b))
+    TK.launches.reset()
+    assert torch.equal(TK.dwt_inv_2d_multi(pyr, scheme=name, mode="jpeg2000"), x)
+    assert TK.launches.snapshot()["whole2d_inv"] == launches
+
+
+@pytest.mark.cuda
 def test_cuda_engine_serves_what_the_cpu_engine_serves(cuda_device):
     rng = np.random.default_rng(9)
     images = [_img(rng, s, -128, 128) for s in [(300, 300), (256, 256), (200, 280), (64, 64)]]
