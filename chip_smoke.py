@@ -58,7 +58,11 @@ Phases (any failure raises and the script exits nonzero):
    ``torch.equal``: 4 schemes x 2 modes, n in {2, 3, 5, 15, 16, 17, 31,
    1001, 65536, 65537}, rows in {1, 3, 64}, int32 extremes, leading dims
    (2, 3, n), int8/int16/uint8/uint16/int32 inputs through the library
-   entry points; forward, and inverse of the forward's bands.
+   entry points; forward, and inverse of the forward's bands.  The run
+   kernels (one launch a run of windowed levels) against their plain
+   versions for cdf53, 97m, haar and a custom scheme of six terms a step
+   (the generic term loop), runs of 1-6 levels, at the plan's tile, at
+   forced tiles and on tensors 4 bytes past a 16-byte boundary.
 6. The 1-D library path: the repo's ``LARGE``, ``LARGE_HAAR`` and
    ``LARGE_97M`` configs (64 x 65,536 int32, 4 levels; 16-bit samples
    from ``--seed``) through ``kernels.dwt_fwd`` / ``dwt_inv`` with and
@@ -68,8 +72,9 @@ Phases (any failure raises and the script exits nonzero):
    through a WZRS stream.  The counters are reset just before and read
    just after: both 1-D kernels, the row pass and the Rice kernels must
    have launched (``rice_decode`` once for the container and once per
-   stream frame), and no plain version may have been called on a CUDA
-   tensor.  Then the results are held against the plain versions: the
+   stream frame; ``lift1d_fwd`` / ``lift1d_inv`` once each per unchecked
+   4-level pyramid, 28 / 11 times in all), and no plain version may have
+   been called on a CUDA tensor.  Then the results are held against the plain versions: the
    pyramids and the container and stream bytes must be equal, every
    reconstruction the input.
 7. 3-D parity: the whole-volume kernels (``whole3d.cu``: one cluster of
@@ -109,9 +114,12 @@ Phases (any failure raises and the script exits nonzero):
    a row, each payload byte-equal to the first and to the plain encode,
    and whose decode, one launch for all 16, is also timed as a whole
    ``decode_bands`` call and on the 29 bands of one 4 x (64, 512, 512)
-   batch, every band equal to the plain decode; 4 levels at (a) 64 x 65,536, (b) 1024 x
-   65,536 and (c) one line of 11,534,336 samples for the 1-D kernels, the
-   cdf22 row pass at (a) and (c); the 4 levels of one 4 x (64, 512, 512)
+   batch, every band equal to the plain decode; a run of 4 cdf53 levels at
+   (a) 64 x 65,536, (b) 1024 x 65,536 and (c) one line of 11,534,336
+   samples for the 1-D run kernels (one launch each way: events, device ms
+   from the profiler, host us a call and launches a call, beside the
+   card's name and power limit), the cdf22 row pass over 4 levels at (a)
+   and (c); the 4 levels of one 4 x (64, 512, 512)
    batch for the 3-D kernels, and the whole-volume kernels also at every
    other level the 3-D path gives them ((16, 256, 256) bucket levels 3-4,
    a WZRS slab's level 3), at cdf22's level 3 and at the three-pass
@@ -1118,8 +1126,73 @@ def parity_sweep_1d(rng, dev) -> dict:
                 _equal_or_raise(label + " inverse", [K.dwt_inv(pyr, mode=mode, scheme=name)],
                                 [L.dwt_inv(want, mode=mode, scheme=name)])
                 cases += 1
+    cases += run_sweep_1d(rng, dev)
     torch.cuda.synchronize(dev)
     return {"cases_1d": cases, "launches": K.launches.snapshot()}
+
+
+RUN_LENGTHS_1D = (16, 17, 23, 31, 40, 1001, 4099, 65537)
+
+
+def _misaligned(t):
+    """A copy of ``t`` whose storage starts 4 bytes past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    off = (-(flat.data_ptr() // 4) % 4 + 1) % 4
+    out = flat[off:off + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def run_sweep_1d(rng, dev) -> int:
+    """Phase 5, runs: the run kernels of ``lift1d.cu`` (one launch a run of
+    windowed levels) against their plain versions with ``torch.equal``:
+    cdf53, 97m and haar, both modes, runs of 1-6 levels from n in
+    ``RUN_LENGTHS_1D``, at the plan's tile (also on tensors 4 bytes past a
+    16-byte boundary) and at forced tiles of 2^L and 3 x 2^L level-0
+    samples (64 x 2^L past 4099) with 1-3 rows a block, int32 extremes;
+    and a scheme of six terms a step (the generic term loop)."""
+    from repro_torch.core import schemes as S
+    from repro_torch.kernels import dwt53 as D
+
+    # a symmetric scheme of six terms a step: its runs take the kernels'
+    # generic term loop, the registered schemes the unrolled one
+    wide = S.scheme_from_spec("wide", [("predict", ((-1, 1), (0, 3), (1, 3), (2, 1)), 3, -1),
+                                       ("update", ((-2, 1), (-1, 3), (0, 3), (1, 1)), 4, 1)])
+    cases = 0
+    for name in ("cdf53", "97m", "haar", "wide"):
+        sch = wide if name == "wide" else S.get_scheme(name)
+        for mode in MODES:
+            for n in RUN_LENGTHS_1D:
+                for levels in range(1, 7):
+                    lens = D.run_lengths(n, levels)
+                    if lens[-1] < 2 or not all(sch.can_window(v) for v in lens):
+                        continue
+                    unit = 1 << levels
+                    forced = ((None, None), (unit, 1), (3 * unit, 3)) if n <= 4099 else (
+                        (None, None), (64 * unit, 2))
+                    kinds = ("rand", "min", "max") if n <= 1001 and levels in (1, 4) else ("rand",)
+                    for kind in kinds:
+                        if kind == "rand":
+                            x = rng.integers(-(1 << 20), 1 << 20, (3, n), dtype=np.int32)
+                        else:
+                            x = np.full((3, n), I32.min if kind == "min" else I32.max, np.int32)
+                        xt = torch.from_numpy(x).to(dev)
+                        s0, d0 = D.lift_fwd_run_plain(xt, levels, mode, sch)
+                        s0, d0 = s0.contiguous(), [d.contiguous() for d in d0]
+                        for tile, rb in forced:
+                            for mis in ((False, True) if tile is None else (False,)):
+                                label = (f"{name}/{mode}/3x{n}/{levels} levels/{kind}/tile {tile}"
+                                         f"/rows {rb}{'/misaligned' if mis else ''}")
+                                xin = _misaligned(xt) if mis else xt
+                                s1, d1 = D.lift_fwd_run_cuda(xin, levels, mode, sch, tile=tile,
+                                                             block_rows=rb)
+                                _equal_or_raise("lift1d_fwd run " + label, [s1, *d1], [s0, *d0])
+                                sin = _misaligned(s0) if mis else s0
+                                din = [_misaligned(d) for d in d0] if mis else d0
+                                _equal_or_raise("lift1d_inv run " + label, [D.lift_inv_run_cuda(
+                                    sin, din, mode, sch, tile=tile, block_rows=rb)], [xt])
+                                cases += 1
+    return cases
 
 
 class PlainGuard:
@@ -1162,6 +1235,13 @@ class PlainGuard:
         return False
 
 
+# lift1d launches on the 1-D path: per unchecked LARGE* pyramid one each
+# way; the checked forward certifies level by level (3 one-level steps)
+# and its checks step again; the container and the stream's 4 frames.
+# The per-level kernels before the runs launched 57 / 43.
+LIFT1D_PATH_LAUNCHES = {"lift1d_fwd": 28, "lift1d_inv": 11}
+
+
 def library_path_1d(rng, dev) -> dict:
     """Phase 6: the repo's 1-D configs, checked mode and the 1-D codec on
     the card; the counters and the plain-version guard cover exactly the
@@ -1191,14 +1271,20 @@ def library_path_1d(rng, dev) -> dict:
     torch.cuda.synchronize(dev)
 
     K.launches.reset()
-    ms, out, raised = {}, {}, {}
+    ms, out, raised, per_call = {}, {}, {}, {}
     with PlainGuard() as guard:
         for cfg in configs:
             x = inputs[cfg.name]
             for checked in (False, True):
                 kw = dict(mode=cfg.mode, scheme=cfg.scheme, checked=checked)
+                before = K.launches.snapshot()
                 pyr, t_f = _timed(lambda: K.dwt_fwd(x, levels=cfg.levels, **kw), dev)
+                mid = K.launches.snapshot()
                 y, t_i = _timed(lambda: K.dwt_inv(pyr, **kw), dev)
+                after = K.launches.snapshot()
+                per_call[f"{cfg.name} checked={checked}"] = {
+                    "forward": mid.get("lift1d_fwd", 0) - before.get("lift1d_fwd", 0),
+                    "inverse": after.get("lift1d_inv", 0) - mid.get("lift1d_inv", 0)}
                 out[(cfg.name, checked)] = (pyr, y)
                 ms[f"{cfg.name} checked={checked}"] = {"forward": t_f, "inverse": t_i}
         for label, xo in over.items():
@@ -1227,6 +1313,14 @@ def library_path_1d(rng, dev) -> dict:
     if counts["rice_decode"] != 1 + len(chunks):
         raise AssertionError(f"{counts['rice_decode']} rice_decode launches for one container and "
                              f"a stream of {len(chunks)} frames: want one per container")
+    for cfg in configs:  # an unchecked 4-level pyramid is one run: one launch each way
+        got = per_call[f"{cfg.name} checked=False"]
+        if got != {"forward": 1, "inverse": 1}:
+            raise AssertionError(f"{cfg.name}: unchecked dwt_fwd / dwt_inv launched lift1d "
+                                 f"{got}, want once each")
+    lift = {k: counts[k] for k in LIFT1D_PATH_LAUNCHES}
+    if lift != LIFT1D_PATH_LAUNCHES:
+        raise AssertionError(f"lift1d launches on the 1-D path {lift}, want {LIFT1D_PATH_LAUNCHES}")
 
     for cfg in configs:
         x = inputs[cfg.name]
@@ -1250,7 +1344,8 @@ def library_path_1d(rng, dev) -> dict:
     _equal_or_raise("1-D stream round trip", [b.cpu() for b in back],
                     [torch.from_numpy(c) for c in chunks])
     torch.cuda.synchronize(dev)
-    return {"launches": counts, "plain_calls_on_cuda": guard.calls, "ms": ms,
+    return {"launches": counts, "lift1d_per_call": per_call, "plain_calls_on_cuda": guard.calls,
+            "ms": ms,
             "raised": raised, "container_bytes": len(blob), "stream_bytes": len(data),
             "plans": {cfg.name: [K.plan_1d(cfg.signal_len >> lv, dev, cfg.scheme)
                                  for lv in range(cfg.levels)] for cfg in configs}}
@@ -1270,10 +1365,12 @@ SHAPES_1D = {
 
 
 def time_1d(rng, dev) -> list:
-    """Phase 9, 1-D half: the 1-D kernels summed over 4 levels at three
-    shapes, beside their plain versions and bounds."""
+    """Phase 9, 1-D half: a 4-level cdf53 run at three shapes through the
+    run kernels (one launch each way: events, device ms from the
+    profiler, host us a call, launches a call), beside the run's plain
+    version and its bound (the level-0 signal read once, every band
+    written once); the cdf22 row pass summed over 4 levels at (a) and (c)."""
     from repro_torch.core import schemes as S
-    from repro_torch.kernels import backend as B
     from repro_torch.kernels import dwt53 as D
 
     levels = 4
@@ -1283,40 +1380,49 @@ def time_1d(rng, dev) -> list:
     entries = {k: {"per_shape": {}} for k in KERNELS_1D}
     for key, (rows, n0) in SHAPES_1D.items():
         x0 = torch.from_numpy(rng.integers(*PCM16, (rows, n0), dtype=np.int32)).to(dev)
-        per = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0, "err": 0} for k in KERNELS_1D}
-        x = x0
-        for lv in range(levels):
-            n = x.shape[1]
-            rb, bp = B.pick_blocks(rows, n - n // 2, sch.halo, dev)
-            rbi, bpi = B.pick_blocks(rows, n - n // 2, 2 * sch.inv_margin, dev)
-            s, d = D.lift_fwd_windows_cuda(x, mode, rb, bp, sch)
-            runs = {
-                "lift1d_fwd": (lambda: D.lift_fwd_windows_cuda(x, mode, rb, bp, sch),
-                               lambda: D.lift_fwd_windows_plain(x, mode, bp, sch)),
-                "lift1d_inv": (lambda: [D.lift_inv_windows_cuda(s, d, mode, rbi, bpi, sch)],
-                               lambda: [D.lift_inv_windows_plain(s, d, mode, bpi, sch)]),
-            }
-            if key in ("a", "c"):
+        lens = D.run_lengths(n0, levels)
+        ops = sum(rows * n * _ops_per_sample(sch) for n in lens)
+        s, ds = D.lift_fwd_run_cuda(x0, levels, mode, sch)
+        per_call = len(D.run_launches(rows, n0, levels, sch, dev))
+        runs = {
+            "lift1d_fwd": (lambda: (lambda o: [o[0], *o[1]])(D.lift_fwd_run_cuda(x0, levels, mode, sch)),
+                           lambda: (lambda o: [o[0], *o[1]])(D.lift_fwd_run_plain(x0, levels, mode, sch))),
+            "lift1d_inv": (lambda: [D.lift_inv_run_cuda(s, ds, mode, sch)],
+                           lambda: [D.lift_inv_run_plain(s, ds, mode, sch)]),
+        }
+        for name, (kern, plain) in runs.items():
+            err = _equal_or_raise(f"{name} {rows}x{n0} x{levels}", kern(), plain())
+            t_bytes, by = bound(2 * rows * n0 * 4, ops)
+            entries[name]["per_shape"][key] = {
+                "err": err, "ms": _median_ms(kern, 20), "plain_ms": _median_ms(plain, 3),
+                "device_ms": _device_ms(kern, per_call), "host_us": _host_us(kern, dev),
+                "launches_a_call": per_call, "bound_ms": t_bytes, "bound_by": by}
+        if key in ("a", "c"):
+            per = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0, "err": 0}
+                   for k in ("rows1d_fwd", "rows1d_inv")}
+            x = x0
+            for lv in range(levels):
+                n = x.shape[1]
                 rs, rd = D.rows_fwd_cuda(x, mode, rows_sch)
-                runs["rows1d_fwd"] = (lambda: D.rows_fwd_cuda(x, mode, rows_sch),
-                                      lambda: S.lift_fwd_axis(x, rows_sch, axis=-1, mode=mode))
-                runs["rows1d_inv"] = (lambda: [D.rows_inv_cuda(rs, rd, mode, rows_sch)],
-                                      lambda: [S.lift_inv_axis(rs, rd, rows_sch, axis=-1,
-                                                               mode=mode)])
-            for name, (kern, plain) in runs.items():
-                e = per[name]
-                e["err"] = max(e["err"], _equal_or_raise(f"{name} {rows}x{n}", kern(), plain()))
-                serial = name.startswith("rows1d") and key == "c"
-                e["ms"] += _median_ms(kern, 3 if serial else 20)
-                e["plain_ms"] += _median_ms(plain, 3)
-                e["bytes"] += 2 * rows * n * 4  # every sample read once, every band entry written once
-                e["ops"] += rows * n * _ops_per_sample(rows_sch if name.startswith("rows1d") else sch)
-            x = s
-        for name, e in per.items():
-            if e["bytes"]:
+                pair = {
+                    "rows1d_fwd": (lambda: D.rows_fwd_cuda(x, mode, rows_sch),
+                                   lambda: S.lift_fwd_axis(x, rows_sch, axis=-1, mode=mode)),
+                    "rows1d_inv": (lambda: [D.rows_inv_cuda(rs, rd, mode, rows_sch)],
+                                   lambda: [S.lift_inv_axis(rs, rd, rows_sch, axis=-1, mode=mode)]),
+                }
+                for name, (kern, plain) in pair.items():
+                    e = per[name]
+                    e["err"] = max(e["err"], _equal_or_raise(f"{name} {rows}x{n}", kern(), plain()))
+                    e["ms"] += _median_ms(kern, 3 if key == "c" else 20)
+                    e["plain_ms"] += _median_ms(plain, 3)
+                    e["bytes"] += 2 * rows * n * 4  # every sample read once, every band entry written once
+                    e["ops"] += rows * n * _ops_per_sample(rows_sch)
+                x = rs
+            for name, e in per.items():
                 e["bound_ms"], e["bound_by"] = bound(e["bytes"], e["ops"])
                 entries[name]["per_shape"][key] = e
-        del x0, x, s, d
+            del x, rs, rd
+        del x0, s, ds
         torch.cuda.empty_cache()
     out = []
     for name, ent in entries.items():
@@ -1327,8 +1433,9 @@ def time_1d(rng, dev) -> list:
             "launches": 0, "max_abs_err": max(e["err"] for e in ent["per_shape"].values()),
             "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
             "bound_by": a["bound_by"], "library_ms": None,
-            "shapes": {k: {"shape": list(SHAPES_1D[k]), "ms": v["ms"], "plain_ms": v["plain_ms"],
-                           "bound_ms": v["bound_ms"]} for k, v in ent["per_shape"].items()},
+            "shapes": {k: {"shape": list(SHAPES_1D[k]), **{f: v[f] for f in (
+                "ms", "plain_ms", "bound_ms", "device_ms", "host_us", "launches_a_call") if f in v}}
+                for k, v in ent["per_shape"].items()},
         })
     return out
 
@@ -2055,6 +2162,8 @@ def main() -> int:
           f"stream equal to the plain encode and decoded exactly on the card", flush=True)
     print(f"launches on the 1-D path: {lib['launches']}; plain versions called on CUDA "
           f"tensors: {sum(lib['plain_calls_on_cuda'].values())}")
+    print("lift1d launches a call (forward / inverse): " + "; ".join(
+        f"{k} {v['forward']} / {v['inverse']}" for k, v in lib["lift1d_per_call"].items()))
     print("1-D path, ms: " + "; ".join(
         f"{k} " + (f"{v:.3f}" if isinstance(v, float) else
                    ", ".join(f"{a} {b:.3f}" for a, b in v.items()))
@@ -2106,8 +2215,14 @@ def main() -> int:
         k["launches"] = lib["launches"][k["name"]]
         shapes_1d[k["name"]] = k.pop("shapes")
         for key, sh in shapes_1d[k["name"]].items():
-            print(f"  {k['name']} ({key}) {sh['shape']} x 4 levels: {sh['ms']:.4f} ms (plain "
-                  f"{sh['plain_ms']:.3f} ms, bound {sh['bound_ms']:.4f} ms)")
+            if "device_ms" in sh:  # a run of 4 windowed levels
+                print(f"  {k['name']} ({key}) {sh['shape']} run of 4 levels: {sh['ms']:.4f} ms "
+                      f"events, device {_fmt_ms(sh['device_ms'])} ms, host {sh['host_us']:.1f} us "
+                      f"a call, {sh['launches_a_call']} launch(es) a call; plain "
+                      f"{sh['plain_ms']:.3f} ms, run bound {sh['bound_ms']:.4f} ms ({card})")
+            else:
+                print(f"  {k['name']} ({key}) {sh['shape']} x 4 levels: {sh['ms']:.4f} ms (plain "
+                      f"{sh['plain_ms']:.3f} ms, bound {sh['bound_ms']:.4f} ms)")
     chains_2d = {}
     for k in kernels:
         for ch in k.pop("chains", []):

@@ -31,7 +31,7 @@ the default slab of 8) are not carried either.
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -286,12 +286,11 @@ def col_scratch(nb: int, n: int, widths, cw: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Block geometry of the windowed 1-D kernels (csrc/lift1d.cu).
+# Blocks of one windowed 1-D level at forced blocks (dwt53.lift_fwd_windows).
 # ---------------------------------------------------------------------------
 
 _MAX_BLOCK_PAIRS = 1024  # a tile of 2048 samples: the halo re-read is < 1%
-# a block's windows take at most an eighth of the SM's shared memory, so
-# eight 256-thread blocks (the SM's 2048 threads) can be resident
+# a block's windows take at most an eighth of the SM's shared memory
 _LINE_BLOCKS_PER_SM = 8
 _MIN_GRID_PER_SM = 4  # fewer rows per block until the grid has this many blocks per SM
 
@@ -303,16 +302,20 @@ def _cdiv(a: int, b: int) -> int:
 def pick_blocks(
     rows: int, pairs: int, halo: int, device: Optional[torch.device] = None
 ) -> Tuple[int, int]:
-    """(block_rows, block_pairs) of a windowed 1-D level over ``rows``
-    lines of ``pairs`` core pairs, with ``halo`` extension samples per
-    side of each window (``2 * margin``).
+    """(block_rows, block_pairs) for one windowed 1-D level over ``rows``
+    lines of ``pairs`` core pairs through the single-level wrappers
+    (``dwt53.lift_fwd_windows`` / ``lift_inv_windows``, a run of one level
+    at tiles of ``2 * block_pairs`` samples), with ``halo`` extension
+    samples per side of each window (``2 * margin``).  The pyramids'
+    runs pick their own tiles (:func:`run_tile`).
 
     ``block_pairs`` is the largest power of two up to 1024 whose one
     int32 window ``(2 * block_pairs + 2 * halo) * 4`` bytes fits an eighth
     of an SM's shared memory, never more than ``pairs``.  ``block_rows``
-    stacks as many windows as that share holds, never more than ``rows``,
-    and fewer where the grid would otherwise have under four blocks per
-    SM.  Derived from :func:`budgets`, not from the TPU's 8 x 256 blocks.
+    stacks as many windows as that share holds, never more than ``rows``
+    nor the run kernel's 4 rows a block, and fewer where the grid would
+    otherwise have under four blocks per SM.  Derived from
+    :func:`budgets`, not from the TPU's 8 x 256 blocks.
     """
     b = budgets(device)
     share = b["smem_per_sm"] // _LINE_BLOCKS_PER_SM
@@ -320,9 +323,91 @@ def pick_blocks(
     while bp > 1 and (2 * bp + 2 * halo) * 4 > share:
         bp //= 2
     bp = max(1, min(bp, pairs))
-    rb = max(1, min(rows, share // ((2 * bp + 2 * halo) * 4)))
+    rb = max(1, min(rows, _RUN_MAX_ROWS, share // ((2 * bp + 2 * halo) * 4)))
     grid_rows = rows * _cdiv(pairs, bp) // (_MIN_GRID_PER_SM * b["sms"])
     return max(1, min(rb, grid_rows)), bp
+
+
+# ---------------------------------------------------------------------------
+# Tile geometry of a run of windowed 1-D levels (csrc/lift1d.cu).
+# ---------------------------------------------------------------------------
+
+# a tile owns at most 4096 level-0 samples: the overlap re-read is 1.5%
+# for cdf53 over 4 levels (2 x 30 samples), 2.9% for 97m
+_RUN_MAX_TILE = 4096
+# a block's rows take at most a quarter of the SM's shared memory: four
+# or more persistent 128-thread blocks an SM, each with the next tile's
+# loads in flight while it lifts the current one (128 threads to a 4096-
+# sample tile: the fastest of 64-256 threads by 1024-4096 samples on the
+# H100, tools/lift1d_anatomy.py's sweep)
+_RUN_BLOCKS_PER_SM = 4
+_RUN_MAX_ROWS = 4  # rows a block: each row keeps 32 lanes or more
+
+
+def run_exts(levels: int, fwd_margin: int, inv_margin: int) -> Tuple[List[int], List[int]]:
+    """Each level's window reach past a tile's core in a run of ``levels``
+    levels: forward ``E_k = 2 * fwd_margin * (2^(levels-k) - 1)`` samples,
+    inverse ``P_0 = inv_margin``, ``P_k = ceil(P_{k-1} / 2) + inv_margin``
+    pairs (``csrc/lift1d.cu`` plan)."""
+    fwd = [2 * fwd_margin * ((1 << (levels - k)) - 1) for k in range(levels)]
+    inv = [inv_margin]
+    for _ in range(levels - 1):
+        inv.append((inv[-1] + 1) // 2 + inv_margin)
+    return fwd, inv
+
+
+def run_row_bytes(tile: int, levels: int, fwd_margin: int, inv_margin: int) -> int:
+    """Shared memory one row of a run's block takes, the larger of the two
+    directions, as ``csrc/lift1d.cu`` (plan) lays it out, every window an
+    even and an odd plane of whole 16-byte groups: forward, two load
+    buffers of the level-0 window and one of the level-1 window; inverse,
+    two load regions (every level's d plane and the coarsest s plane) and
+    the level-0 and level-1 s planes."""
+    fwd, inv = run_exts(levels, fwd_margin, inv_margin)
+    r4 = lambda v: _cdiv(v, 4) * 4  # noqa: E731
+    second = levels > 1
+    f = 4 * r4(tile // 2 + fwd[0]) + (2 * r4(tile // 4 + fwd[1]) if second else 0)
+    region = sum(r4((tile >> k) // 2 + 2 * inv[k]) for k in range(levels))
+    region += r4((tile >> (levels - 1)) // 2 + 2 * inv[-1])
+    i = 2 * region + r4(tile // 2 + 2 * inv[0]) + (r4(tile // 4 + 2 * inv[1]) if second else 0)
+    return 4 * max(f, i)
+
+
+def run_tile(
+    rows: int, n: int, levels: int, fwd_margin: int, inv_margin: int,
+    device: Optional[torch.device] = None,
+) -> Optional[Tuple[int, int]]:
+    """(tile, block_rows) of one launch of ``levels`` windowed levels over
+    ``rows`` lines of ``n`` samples, or None where no tile takes them.
+
+    The tile is the largest multiple of 2^levels up to 4096 level-0
+    samples, never longer than the line rounds up to, whose row
+    (:func:`run_row_bytes`) fits a quarter of an SM's shared memory;
+    then the shortest multiple of 2^levels that cuts the line into as many
+    tiles, so the last tile is not a sliver.  A
+    run of two or more levels also needs the tile to be at least twice
+    its forward reach E_0 (the re-read at most the core); else None, and the
+    caller shortens the run.  ``block_rows`` stacks up to 4 rows (a power
+    of two) while they fit that share and the grid keeps four blocks an
+    SM.  Derived from :func:`budgets`.
+    """
+    b = budgets(device)
+    share = min(b["smem_per_sm"] // _RUN_BLOCKS_PER_SM - _SMEM_RESERVED_PER_BLOCK,
+                b["smem_per_block"])
+    unit = 1 << levels
+    tile = max(unit, min(_RUN_MAX_TILE // unit * unit, _cdiv(n, unit) * unit))
+    while tile > unit and run_row_bytes(tile, levels, fwd_margin, inv_margin) > share:
+        tile -= unit
+    tiles = _cdiv(n, tile)
+    tile = _cdiv(_cdiv(n, tiles), unit) * unit  # the same tiles, as even as they come
+    row = run_row_bytes(tile, levels, fwd_margin, inv_margin)
+    if levels > 1 and (row > share or 4 * fwd_margin * ((1 << levels) - 1) > tile):
+        return None
+    rb = 1
+    while (2 * rb <= min(rows, _RUN_MAX_ROWS) and 2 * rb * row <= share
+           and _cdiv(rows, 2 * rb) * tiles >= _MIN_GRID_PER_SM * b["sms"]):
+        rb *= 2
+    return tile, rb
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,9 @@ One level over a ``(rows, n)`` int32 stream takes one of two engines:
   * **windowed** (``kernels/dwt53.py``, ``csrc/lift1d.cu``) — halo'd tiles
     of every line, one pass over device memory; taken when the line has
     at least ``_MIN_KERNEL_PAIRS`` pairs and the scheme windows on its
-    length (``scheme.can_window``).
+    length (``scheme.can_window``).  Consecutive windowed levels of a
+    pyramid form a run (:func:`level_runs_1d`) that is one launch each
+    way: the level-0 signal read once, every band written once.
   * **row pass** (``csrc/whole2d.cu``) — whole lines with band-policy
     reads at the borders; it takes every scheme and every ``n >= 2``, so
     short lines, ``cdf22`` at any length and ``haar`` on odd lengths stay
@@ -83,8 +85,8 @@ def _fwd_level(xf: Tensor, sch: S.LiftingScheme, mode: str) -> Tuple[Tensor, Ten
         return xf[:, : n - n // 2], xf[:, : n // 2]
     if not _windowed(sch, n):
         return _k.rows_fwd(xf, mode, sch)
-    rb, bp = _backend.pick_blocks(rows, n - n // 2, sch.halo, xf.device)
-    return _k.lift_fwd_windows(xf, mode, rb, bp, sch)
+    s, ds = _k.lift_fwd_run(xf, 1, mode, sch)
+    return s, ds[0]
 
 
 def _inv_level(sf: Tensor, df: Tensor, sch: S.LiftingScheme, mode: str) -> Tensor:
@@ -95,8 +97,26 @@ def _inv_level(sf: Tensor, df: Tensor, sch: S.LiftingScheme, mode: str) -> Tenso
         return sf.new_empty((0, n))
     if not _windowed(sch, n):
         return _k.rows_inv(sf, df, mode, sch)
-    rb, bp = _backend.pick_blocks(rows, n_e, 2 * sch.inv_margin, sf.device)
-    return _k.lift_inv_windows(sf, df, mode, rb, bp, sch)
+    return _k.lift_inv_run(sf, [df], mode, sch)
+
+
+def level_runs_1d(n: int, levels: int, sch) -> List[Tuple[bool, int]]:
+    """The levels of a pyramid from a length-n line grouped as they
+    launch, finest first: ``(True, c)`` for each maximal run of c
+    consecutive windowed levels (:func:`_windowed` on each level's own
+    length), one call of ``dwt53.lift_fwd_run`` / ``lift_inv_run``;
+    ``(False, 1)`` for every other level (the row pass).  The 1-D
+    counterpart of ``fused2d.level_runs``."""
+    sch = S.get_scheme(sch)
+    runs: List[Tuple[bool, int]] = []
+    for _ in range(levels):
+        windowed = _windowed(sch, n)
+        if windowed and runs and runs[-1][0]:
+            runs[-1] = (True, runs[-1][1] + 1)
+        else:
+            runs.append((windowed, 1))
+        n -= n // 2
+    return runs
 
 
 def plan_1d(n: int, device="cuda", scheme="cdf53") -> str:
@@ -191,9 +211,14 @@ def dwt_fwd(
     lead = tuple(x.shape[:-1])
     s = _rows(x)
     details: List[Tensor] = []
-    for _ in range(levels):
-        s, d = _fwd_level(s, sch, mode)
-        details.append(d)
+    for windowed, count in level_runs_1d(s.shape[-1], levels, sch):
+        if windowed and s.shape[0]:
+            s, ds = _k.lift_fwd_run(s, count, mode, sch)
+            details.extend(ds)
+            continue
+        for _ in range(count):  # the row pass, or no rows at all
+            s, d = _fwd_level(s, sch, mode)
+            details.append(d)
     return WaveletPyramid(
         approx=s.reshape(lead + (s.shape[-1],)),
         details=tuple(d.reshape(lead + (d.shape[-1],)) for d in reversed(details)),
@@ -219,8 +244,15 @@ def dwt_inv(pyr: WaveletPyramid, mode: str = "paper", scheme="cdf53", checked=No
         n = n + d.shape[-1]
     lead = tuple(pyr.approx.shape[:-1])
     s = _rows(pyr.approx)
-    for d in pyr.details:  # coarsest first
-        s = _inv_level(s, _rows(d), sch, mode)
+    fine = [_rows(d) for d in reversed(pyr.details)]  # finest first
+    k = len(fine)
+    for windowed, count in reversed(level_runs_1d(n, len(fine), sch)):
+        k -= count
+        if windowed and s.shape[0]:
+            s = _k.lift_inv_run(s, fine[k:k + count], mode, sch)
+            continue
+        for j in range(k + count - 1, k - 1, -1):  # the row pass, or no rows at all
+            s = _inv_level(s, fine[j], sch, mode)
     return s.reshape(lead + (s.shape[-1],))
 
 

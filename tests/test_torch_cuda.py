@@ -495,6 +495,63 @@ def test_cuda_1d_kernels_match_plain_versions(name, mode, cuda_device):
     torch.cuda.synchronize(cuda_device)
 
 
+def _misaligned(t):
+    """A copy of ``t`` whose storage starts 4 bytes past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    off = (-(flat.data_ptr() // 4) % 4 + 1) % 4
+    out = flat[off:off + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4
+    return out
+
+
+# a symmetric scheme of six terms a step: its runs take the kernels'
+# generic term loop (lift_terms) instead of the unrolled one
+WIDE = TS.scheme_from_spec("wide", [("predict", ((-1, 1), (0, 3), (1, 3), (2, 1)), 3, -1),
+                                    ("update", ((-2, 1), (-1, 3), (0, 3), (1, 1)), 4, 1)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("name", ["cdf53", "97m", "haar", "wide"])
+def test_cuda_1d_run_kernels_match_plain_versions(name, mode, cuda_device):
+    """The run kernels (one launch a run of windowed levels) against the
+    run's plain versions: runs of 1-6 levels, n = 16-40, 1001, 4099 and
+    65,537, at the plan's tile, at forced tiles of 2^L and 3 x 2^L
+    samples with 1-3 rows a block, on tensors 4 bytes past a 16-byte
+    boundary, and at int32 extremes; ``wide`` (six terms a step) takes the
+    generic term loop, the registered schemes the unrolled one."""
+    from repro_torch.kernels import dwt53 as TD
+
+    rng = np.random.default_rng(22)
+    sch = WIDE if name == "wide" else TS.get_scheme(name)
+    for n in list(range(16, 41)) + [1001, 4099, 65537]:
+        for levels in range(1, 7):
+            lens = TD.run_lengths(n, levels)
+            if lens[-1] < 2 or not all(sch.can_window(v) for v in lens):
+                continue
+            unit = 1 << levels
+            for kind in ("rand", "min", "max") if n <= 1001 else ("rand",):
+                x = _img(rng, (3, n), -(1 << 20), 1 << 20) if kind == "rand" else np.full(
+                    (3, n), I32.min if kind == "min" else I32.max, np.int32)
+                xt = torch.from_numpy(x).to(cuda_device)
+                s0, d0 = TD.lift_fwd_run_plain(xt, levels, mode, sch)
+                s0, d0 = s0.contiguous(), [d.contiguous() for d in d0]
+                for tile, rb, mis in ((None, None, False), (None, None, True), (unit, 1, False),
+                                      (3 * unit, 3, False), (3 * unit, 2, True)):
+                    xin = _misaligned(xt) if mis else xt
+                    s1, d1 = TD.lift_fwd_run_cuda(xin, levels, mode, sch, tile=tile,
+                                                  block_rows=rb)
+                    case = (n, levels, kind, tile, rb, mis)
+                    assert torch.equal(s1, s0), case
+                    assert all(torch.equal(a, b) for a, b in zip(d1, d0)), case
+                    sin = _misaligned(s0) if mis else s0
+                    din = [_misaligned(d) for d in d0] if mis else d0
+                    assert torch.equal(TD.lift_inv_run_cuda(sin, din, mode, sch, tile=tile,
+                                                            block_rows=rb), xt), case
+    torch.cuda.synchronize(cuda_device)
+
+
 @pytest.mark.cuda
 def test_cuda_1d_library_and_codec_paths(cuda_device):
     from repro_torch.codec import stream as TSTREAM
@@ -515,6 +572,15 @@ def test_cuda_1d_library_and_codec_paths(cuda_device):
     counts = TK.launches.snapshot()
     assert all(counts.get(k, 0) > 0 for k in
                ("lift1d_fwd", "lift1d_inv", "rows1d_fwd", "rows1d_inv")), counts
+    # an unchecked multi-level pyramid whose levels all window is one run:
+    # one lift1d launch each way
+    for name in ("cdf53", "97m", "haar"):
+        xl = torch.from_numpy(_img(rng, (64, 65536), -32768, 32768)).to(cuda_device)
+        TK.launches.reset()
+        pyr = TK.dwt_fwd(xl, levels=4, scheme=name, checked=False)
+        assert TK.launches.snapshot() == {"lift1d_fwd": 1}
+        assert torch.equal(TK.dwt_inv(pyr, scheme=name, checked=False), xl)
+        assert TK.launches.snapshot() == {"lift1d_fwd": 1, "lift1d_inv": 1}
     with pytest.raises(OverflowError):
         TK.dwt_fwd(torch.full((1, 64), int(I32.max), dtype=torch.int32, device=cuda_device),
                    levels=2, checked=True)

@@ -339,8 +339,13 @@ def test_pick_blocks_from_the_card_budget():
     assert TB.pick_blocks(3, 5, 4) == (1, 5)
     for rows, pairs, halo in ((1, 1, 0), (7, 100, 4), (2048, 8, 4), (64, 4096, 2)):
         rb, bp = TB.pick_blocks(rows, pairs, halo)
-        assert 1 <= rb <= rows and 1 <= bp <= pairs
+        assert 1 <= rb <= min(rows, 4) and 1 <= bp <= pairs  # the run kernel's 4 rows a block
         assert rb * (2 * bp + 2 * halo) * 4 <= TB.H100_SMEM_PER_SM // 8
+    # a pyramid's run of windowed levels picks its tile from the same budget
+    for rows, n, levels in ((64, 65536, 4), (1, 11534336, 4), (10**6, 64, 2), (3, 4099, 6)):
+        tile, rb = TB.run_tile(rows, n, levels, 2, 2)
+        assert tile % (1 << levels) == 0 and 1 <= rb <= min(rows, 4)
+        assert rb * TB.run_row_bytes(tile, levels, 2, 2) <= TB.H100_SMEM_PER_SM // 4 - 1024
     with pytest.raises(RuntimeError, match="is_available"):
         TK.plan_1d(64)  # the default device is the card
 
