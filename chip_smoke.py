@@ -59,10 +59,12 @@ Phases (any failure raises and the script exits nonzero):
    1001, 65536, 65537}, rows in {1, 3, 64}, int32 extremes, leading dims
    (2, 3, n), int8/int16/uint8/uint16/int32 inputs through the library
    entry points; forward, and inverse of the forward's bands.  The run
-   kernels (one launch a run of windowed levels) against their plain
-   versions for cdf53, 97m, haar and a custom scheme of six terms a step
-   (the generic term loop), runs of 1-6 levels, at the plan's tile, at
-   forced tiles and on tensors 4 bytes past a 16-byte boundary.
+   kernels (one launch a run of levels) against their plain versions for
+   the 4 schemes and a custom scheme of six terms a step (the generic
+   term loop), windowed runs and policy runs (cdf22, haar with an odd
+   level), runs of 1-6 levels from n in both length sets, at the plan's
+   tile, at forced tiles, at int32 extremes and on tensors 4 bytes past
+   a 16-byte boundary.
 6. The 1-D library path: the repo's ``LARGE``, ``LARGE_HAAR`` and
    ``LARGE_97M`` configs (64 x 65,536 int32, 4 levels; 16-bit samples
    from ``--seed``) through ``kernels.dwt_fwd`` / ``dwt_inv`` with and
@@ -73,8 +75,11 @@ Phases (any failure raises and the script exits nonzero):
    just after: both 1-D kernels, the row pass and the Rice kernels must
    have launched (``rice_decode`` once for the container and once per
    stream frame; ``lift1d_fwd`` / ``lift1d_inv`` once each per unchecked
-   4-level pyramid, 28 / 11 times in all), and no plain version may have
-   been called on a CUDA tensor.  Then the results are held against the plain versions: the
+   4-level pyramid, 30 / 13 times in all), and no plain version may have
+   been called on a CUDA tensor.  Two unchecked 4-level cdf22 pyramids,
+   (a) 64 x 65,536 and (c) one line of 11,534,336 samples, must each be
+   one ``lift1d`` launch each way (a policy run) and no ``rows1d``
+   launch.  Then the results are held against the plain versions: the
    pyramids and the container and stream bytes must be equal, every
    reconstruction the input.
 7. 3-D parity: the whole-volume kernels (``whole3d.cu``: one cluster of
@@ -114,12 +119,13 @@ Phases (any failure raises and the script exits nonzero):
    a row, each payload byte-equal to the first and to the plain encode,
    and whose decode, one launch for all 16, is also timed as a whole
    ``decode_bands`` call and on the 29 bands of one 4 x (64, 512, 512)
-   batch, every band equal to the plain decode; a run of 4 cdf53 levels at
-   (a) 64 x 65,536, (b) 1024 x 65,536 and (c) one line of 11,534,336
-   samples for the 1-D run kernels (one launch each way: events, device ms
-   from the profiler, host us a call and launches a call, beside the
-   card's name and power limit), the cdf22 row pass over 4 levels at (a)
-   and (c); the 4 levels of one 4 x (64, 512, 512)
+   batch, every band equal to the plain decode; 4-level runs for the 1-D
+   run kernels, cdf53 (windowed) and cdf22 (policy) at (a) 64 x 65,536,
+   (b) 1024 x 65,536 and (c) one line of 11,534,336 samples, haar
+   (policy) at their odd neighbours (one launch each way: events, device
+   ms from the profiler, host us a call and launches a call, beside the
+   card's name and power limit), the row pass on lines under 8 pairs
+   ((3, 13), the 1-D path's, and (4096, 15)); the 4 levels of one 4 x (64, 512, 512)
    batch for the 3-D kernels, and the whole-volume kernels also at every
    other level the 3-D path gives them ((16, 256, 256) bucket levels 3-4,
    a WZRS slab's level 3), at cdf22's level 3 and at the three-pass
@@ -175,7 +181,9 @@ KERNELS_1D = {
     "lift1d_fwd": ("src/repro_torch/csrc/lift1d.cu", "src/repro/kernels/dwt53.py:57"),
     "lift1d_inv": ("src/repro_torch/csrc/lift1d.cu", "src/repro/kernels/dwt53.py:92"),
     # no TPU kernel: the reference's in-graph band-policy fallback of
-    # ops._fwd_level / _inv_level (short lines, unwindowable schemes)
+    # ops._fwd_level / _inv_level, for lines under 8 pairs (its
+    # unwindowable levels, cdf22 and haar on odd lengths, are policy runs
+    # of lift1d here)
     "rows1d_fwd": ("src/repro_torch/csrc/whole2d.cu", "src/repro/kernels/ops.py:93"),
     "rows1d_inv": ("src/repro_torch/csrc/whole2d.cu", "src/repro/kernels/ops.py:133"),
 }
@@ -1145,12 +1153,14 @@ def _misaligned(t):
 
 def run_sweep_1d(rng, dev) -> int:
     """Phase 5, runs: the run kernels of ``lift1d.cu`` (one launch a run of
-    windowed levels) against their plain versions with ``torch.equal``:
-    cdf53, 97m and haar, both modes, runs of 1-6 levels from n in
-    ``RUN_LENGTHS_1D``, at the plan's tile (also on tensors 4 bytes past a
-    16-byte boundary) and at forced tiles of 2^L and 3 x 2^L level-0
-    samples (64 x 2^L past 4099) with 1-3 rows a block, int32 extremes;
-    and a scheme of six terms a step (the generic term loop)."""
+    levels) against their plain versions with ``torch.equal``: every
+    scheme of ``SCHEMES``, both modes, runs of 1-6 levels from n in
+    ``LENGTHS_1D`` and ``RUN_LENGTHS_1D`` — windowed runs, and policy runs
+    (cdf22; haar with an odd level: band-policy rewrites after every
+    step) — at the plan's tile (also on tensors 4 bytes past a 16-byte
+    boundary) and at forced tiles of 2^L and 3 x 2^L level-0 samples (64
+    x 2^L past 4099) with 1-3 rows a block, int32 extremes; and a scheme
+    of six terms a step (the generic term loop)."""
     from repro_torch.core import schemes as S
     from repro_torch.kernels import dwt53 as D
 
@@ -1159,17 +1169,18 @@ def run_sweep_1d(rng, dev) -> int:
     wide = S.scheme_from_spec("wide", [("predict", ((-1, 1), (0, 3), (1, 3), (2, 1)), 3, -1),
                                        ("update", ((-2, 1), (-1, 3), (0, 3), (1, 1)), 4, 1)])
     cases = 0
-    for name in ("cdf53", "97m", "haar", "wide"):
+    for name in SCHEMES + ("wide",):
         sch = wide if name == "wide" else S.get_scheme(name)
         for mode in MODES:
-            for n in RUN_LENGTHS_1D:
+            for n in sorted(set(LENGTHS_1D + RUN_LENGTHS_1D)):
                 for levels in range(1, 7):
                     lens = D.run_lengths(n, levels)
-                    if lens[-1] < 2 or not all(sch.can_window(v) for v in lens):
+                    if lens[-1] < 2:
                         continue
                     unit = 1 << levels
                     forced = ((None, None), (unit, 1), (3 * unit, 3)) if n <= 4099 else (
                         (None, None), (64 * unit, 2))
+                    policy = D.run_policy(sch, n, levels)
                     kinds = ("rand", "min", "max") if n <= 1001 and levels in (1, 4) else ("rand",)
                     for kind in kinds:
                         if kind == "rand":
@@ -1182,7 +1193,8 @@ def run_sweep_1d(rng, dev) -> int:
                         for tile, rb in forced:
                             for mis in ((False, True) if tile is None else (False,)):
                                 label = (f"{name}/{mode}/3x{n}/{levels} levels/{kind}/tile {tile}"
-                                         f"/rows {rb}{'/misaligned' if mis else ''}")
+                                         f"/rows {rb}{'/misaligned' if mis else ''}"
+                                         f"{'/policy' if policy else ''}")
                                 xin = _misaligned(xt) if mis else xt
                                 s1, d1 = D.lift_fwd_run_cuda(xin, levels, mode, sch, tile=tile,
                                                              block_rows=rb)
@@ -1237,9 +1249,13 @@ class PlainGuard:
 
 # lift1d launches on the 1-D path: per unchecked LARGE* pyramid one each
 # way; the checked forward certifies level by level (3 one-level steps)
-# and its checks step again; the container and the stream's 4 frames.
-# The per-level kernels before the runs launched 57 / 43.
-LIFT1D_PATH_LAUNCHES = {"lift1d_fwd": 28, "lift1d_inv": 11}
+# and its checks step again; the container and the stream's 4 frames;
+# the two cdf22 policy pyramids, one each way.  The per-level kernels
+# before the runs launched 57 / 43.
+LIFT1D_PATH_LAUNCHES = {"lift1d_fwd": 30, "lift1d_inv": 13}
+# 4-level cdf22 pyramids (policy runs) on the 1-D path: (a) the LARGE
+# shape, (c) one stablelm-1.6b MLP matrix flattened as the wz codec does
+POLICY_1D = (("a", (64, 65536)), ("c", (1, 2048 * 5632)))
 
 
 def library_path_1d(rng, dev) -> dict:
@@ -1268,6 +1284,8 @@ def library_path_1d(rng, dev) -> dict:
     big = CFG.LARGE
     chunks = [rng.integers(*PCM16, shape, dtype=np.int32)
               for shape in ((64, 16384), (64, 16384), (64, 16384), (3, 100))]
+    policy_in = {key: torch.from_numpy(rng.integers(*PCM16, shape, dtype=np.int32)).to(dev)
+                 for key, shape in POLICY_1D}
     torch.cuda.synchronize(dev)
 
     K.launches.reset()
@@ -1287,6 +1305,18 @@ def library_path_1d(rng, dev) -> dict:
                     "inverse": after.get("lift1d_inv", 0) - mid.get("lift1d_inv", 0)}
                 out[(cfg.name, checked)] = (pyr, y)
                 ms[f"{cfg.name} checked={checked}"] = {"forward": t_f, "inverse": t_i}
+        for key, x in policy_in.items():  # cdf22: one policy run each way, no row pass
+            kw = dict(mode="paper", scheme="cdf22", checked=False)
+            before = K.launches.snapshot()
+            pyr, t_f = _timed(lambda: K.dwt_fwd(x, levels=4, **kw), dev)
+            mid = K.launches.snapshot()
+            y, t_i = _timed(lambda: K.dwt_inv(pyr, **kw), dev)
+            after = K.launches.snapshot()
+            per_call[f"cdf22 ({key}) checked=False"] = {
+                d: {k: b.get(k, 0) - a.get(k, 0) for k in ("lift1d_" + d, "rows1d_" + d)}
+                for d, a, b in (("fwd", before, mid), ("inv", mid, after))}
+            out[("cdf22", key)] = (pyr, y)
+            ms[f"cdf22 ({key}) checked=False"] = {"forward": t_f, "inverse": t_i}
         for label, xo in over.items():
             try:
                 K.dwt_fwd(torch.from_numpy(xo).to(dev), levels=4, scheme="97m",
@@ -1318,6 +1348,13 @@ def library_path_1d(rng, dev) -> dict:
         if got != {"forward": 1, "inverse": 1}:
             raise AssertionError(f"{cfg.name}: unchecked dwt_fwd / dwt_inv launched lift1d "
                                  f"{got}, want once each")
+    for key, _ in POLICY_1D:
+        got = per_call.pop(f"cdf22 ({key}) checked=False")
+        want = {"fwd": {"lift1d_fwd": 1, "rows1d_fwd": 0}, "inv": {"lift1d_inv": 1, "rows1d_inv": 0}}
+        if got != want:
+            raise AssertionError(f"cdf22 ({key}): an unchecked 4-level pyramid launched {got}, "
+                                 f"want one lift1d launch each way and no row pass")
+        per_call[f"cdf22 ({key}) checked=False"] = {"forward": 1, "inverse": 1}
     lift = {k: counts[k] for k in LIFT1D_PATH_LAUNCHES}
     if lift != LIFT1D_PATH_LAUNCHES:
         raise AssertionError(f"lift1d launches on the 1-D path {lift}, want {LIFT1D_PATH_LAUNCHES}")
@@ -1330,6 +1367,12 @@ def library_path_1d(rng, dev) -> dict:
             _equal_or_raise(f"{cfg.name} checked={checked} pyramid",
                             (pyr.approx,) + pyr.details, (want.approx,) + want.details)
             _equal_or_raise(f"{cfg.name} checked={checked} round trip", [y], [x])
+    for key, x in policy_in.items():
+        want = L.dwt_fwd(x, levels=4, mode="paper", scheme="cdf22")
+        pyr, y = out[("cdf22", key)]
+        _equal_or_raise(f"cdf22 ({key}) pyramid", (pyr.approx,) + pyr.details,
+                        (want.approx,) + want.details)
+        _equal_or_raise(f"cdf22 ({key}) round trip", [y], [x])
     x = inputs[big.name]
     cpu_pyr = L.WaveletPyramid(approx=pyr_big.approx.cpu(),
                                details=tuple(d.cpu() for d in pyr_big.details))
@@ -1362,23 +1405,33 @@ SHAPES_1D = {
     "b": (1024, 65536),  # 256 MiB, beyond the 50 MB L2
     "c": (1, 2048 * 5632),  # one stablelm-1.6b MLP matrix, flattened as the wz codec does
 }
+# the runs phase 9 times: cdf53 (windowed) at the three shapes; cdf22
+# (policy runs) at the same shapes; haar at their odd neighbours, where
+# every level is odd (policy runs)
+RUNS_1D = (tuple((k, "cdf53", shape) for k, shape in SHAPES_1D.items())
+           + tuple((f"{k} cdf22", "cdf22", shape) for k, shape in SHAPES_1D.items())
+           + tuple((f"{k}' haar", "haar", (r, n + 1)) for k, (r, n) in SHAPES_1D.items()))
+# the row pass: lines under 8 pairs; (3, 13) is level 3 of the 1-D path's
+# (3, 100) stream frame, (4096, 15) a batch of short lines
+ROWS_1D = {"path": (3, 13), "short": (4096, 15)}
 
 
 def time_1d(rng, dev) -> list:
-    """Phase 9, 1-D half: a 4-level cdf53 run at three shapes through the
-    run kernels (one launch each way: events, device ms from the
-    profiler, host us a call, launches a call), beside the run's plain
-    version and its bound (the level-0 signal read once, every band
-    written once); the cdf22 row pass summed over 4 levels at (a) and (c)."""
+    """Phase 9, 1-D half: 4-level runs through the run kernels (one
+    launch each way: events, device ms from the profiler, host us a call,
+    launches a call), beside the run's plain version and its bound (the
+    level-0 signal read once, every band written once): cdf53 (windowed)
+    at (a), (b), (c), cdf22 (policy) at the same shapes, haar (policy) at
+    their odd neighbours; the row pass on lines under 8 pairs, one level,
+    beside its plain version and its bound."""
     from repro_torch.core import schemes as S
     from repro_torch.kernels import dwt53 as D
 
     levels = 4
-    rows_sch = S.get_scheme("cdf22")
-    sch = S.get_scheme("cdf53")
     mode = "paper"
     entries = {k: {"per_shape": {}} for k in KERNELS_1D}
-    for key, (rows, n0) in SHAPES_1D.items():
+    for key, name, (rows, n0) in RUNS_1D:
+        sch = S.get_scheme(name)
         x0 = torch.from_numpy(rng.integers(*PCM16, (rows, n0), dtype=np.int32)).to(dev)
         lens = D.run_lengths(n0, levels)
         ops = sum(rows * n * _ops_per_sample(sch) for n in lens)
@@ -1390,52 +1443,48 @@ def time_1d(rng, dev) -> list:
             "lift1d_inv": (lambda: [D.lift_inv_run_cuda(s, ds, mode, sch)],
                            lambda: [D.lift_inv_run_plain(s, ds, mode, sch)]),
         }
-        for name, (kern, plain) in runs.items():
-            err = _equal_or_raise(f"{name} {rows}x{n0} x{levels}", kern(), plain())
+        for kname, (kern, plain) in runs.items():
+            err = _equal_or_raise(f"{kname} {name} {rows}x{n0} x{levels}", kern(), plain())
             t_bytes, by = bound(2 * rows * n0 * 4, ops)
-            entries[name]["per_shape"][key] = {
+            entries[kname]["per_shape"][key] = {
+                "scheme": name, "shape": [rows, n0], "policy": D.run_policy(sch, n0, levels),
                 "err": err, "ms": _median_ms(kern, 20), "plain_ms": _median_ms(plain, 3),
                 "device_ms": _device_ms(kern, per_call), "host_us": _host_us(kern, dev),
                 "launches_a_call": per_call, "bound_ms": t_bytes, "bound_by": by}
-        if key in ("a", "c"):
-            per = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0, "err": 0}
-                   for k in ("rows1d_fwd", "rows1d_inv")}
-            x = x0
-            for lv in range(levels):
-                n = x.shape[1]
-                rs, rd = D.rows_fwd_cuda(x, mode, rows_sch)
-                pair = {
-                    "rows1d_fwd": (lambda: D.rows_fwd_cuda(x, mode, rows_sch),
-                                   lambda: S.lift_fwd_axis(x, rows_sch, axis=-1, mode=mode)),
-                    "rows1d_inv": (lambda: [D.rows_inv_cuda(rs, rd, mode, rows_sch)],
-                                   lambda: [S.lift_inv_axis(rs, rd, rows_sch, axis=-1, mode=mode)]),
-                }
-                for name, (kern, plain) in pair.items():
-                    e = per[name]
-                    e["err"] = max(e["err"], _equal_or_raise(f"{name} {rows}x{n}", kern(), plain()))
-                    e["ms"] += _median_ms(kern, 3 if key == "c" else 20)
-                    e["plain_ms"] += _median_ms(plain, 3)
-                    e["bytes"] += 2 * rows * n * 4  # every sample read once, every band entry written once
-                    e["ops"] += rows * n * _ops_per_sample(rows_sch)
-                x = rs
-            for name, e in per.items():
-                e["bound_ms"], e["bound_by"] = bound(e["bytes"], e["ops"])
-                entries[name]["per_shape"][key] = e
-            del x, rs, rd
         del x0, s, ds
         torch.cuda.empty_cache()
+    rows_sch = S.get_scheme("cdf22")
+    for key, (rows, n) in ROWS_1D.items():
+        x = torch.from_numpy(rng.integers(*PCM16, (rows, n), dtype=np.int32)).to(dev)
+        rs, rd = D.rows_fwd_cuda(x, mode, rows_sch)
+        pair = {
+            "rows1d_fwd": (lambda: D.rows_fwd_cuda(x, mode, rows_sch),
+                           lambda: S.lift_fwd_axis(x, rows_sch, axis=-1, mode=mode)),
+            "rows1d_inv": (lambda: [D.rows_inv_cuda(rs, rd, mode, rows_sch)],
+                           lambda: [S.lift_inv_axis(rs, rd, rows_sch, axis=-1, mode=mode)]),
+        }
+        for kname, (kern, plain) in pair.items():
+            err = _equal_or_raise(f"{kname} cdf22 {rows}x{n}", kern(), plain())
+            t_bytes, by = bound(2 * rows * n * 4, rows * n * _ops_per_sample(rows_sch))
+            entries[kname]["per_shape"][key] = {
+                "scheme": "cdf22", "shape": [rows, n], "err": err, "ms": _median_ms(kern, 20),
+                "plain_ms": _median_ms(plain, 3), "device_ms": _device_ms(kern, 1),
+                "host_us": _host_us(kern, dev), "launches_a_call": 1, "bound_ms": t_bytes,
+                "bound_by": by}
+        del x, rs, rd
     out = []
     for name, ent in entries.items():
         source, replaces = KERNELS_1D[name]
-        a = ent["per_shape"]["a"]
+        head = ent["per_shape"]["a" if name.startswith("lift1d") else "path"]
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": 0, "max_abs_err": max(e["err"] for e in ent["per_shape"].values()),
-            "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
-            "bound_by": a["bound_by"], "library_ms": None,
-            "shapes": {k: {"shape": list(SHAPES_1D[k]), **{f: v[f] for f in (
-                "ms", "plain_ms", "bound_ms", "device_ms", "host_us", "launches_a_call") if f in v}}
-                for k, v in ent["per_shape"].items()},
+            "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": None,
+            "shapes": {k: {f: v[f] for f in ("scheme", "shape", "policy", "ms", "plain_ms",
+                                             "bound_ms", "device_ms", "host_us",
+                                             "launches_a_call") if f in v}
+                       for k, v in ent["per_shape"].items()},
         })
     return out
 
@@ -2215,14 +2264,12 @@ def main() -> int:
         k["launches"] = lib["launches"][k["name"]]
         shapes_1d[k["name"]] = k.pop("shapes")
         for key, sh in shapes_1d[k["name"]].items():
-            if "device_ms" in sh:  # a run of 4 windowed levels
-                print(f"  {k['name']} ({key}) {sh['shape']} run of 4 levels: {sh['ms']:.4f} ms "
-                      f"events, device {_fmt_ms(sh['device_ms'])} ms, host {sh['host_us']:.1f} us "
-                      f"a call, {sh['launches_a_call']} launch(es) a call; plain "
-                      f"{sh['plain_ms']:.3f} ms, run bound {sh['bound_ms']:.4f} ms ({card})")
-            else:
-                print(f"  {k['name']} ({key}) {sh['shape']} x 4 levels: {sh['ms']:.4f} ms (plain "
-                      f"{sh['plain_ms']:.3f} ms, bound {sh['bound_ms']:.4f} ms)")
+            what = ("run of 4 levels" + (" (policy)" if sh["policy"] else "")
+                    if "policy" in sh else "one level")
+            print(f"  {k['name']} ({key}) {sh['scheme']} {sh['shape']} {what}: {sh['ms']:.4f} ms "
+                  f"events, device {_fmt_ms(sh['device_ms'])} ms, host {sh['host_us']:.1f} us "
+                  f"a call, {sh['launches_a_call']} launch(es) a call; plain "
+                  f"{sh['plain_ms']:.3f} ms, bound {sh['bound_ms']:.4f} ms ({card})")
     chains_2d = {}
     for k in kernels:
         for ch in k.pop("chains", []):

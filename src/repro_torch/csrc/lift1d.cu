@@ -3,8 +3,9 @@
 //
 // Replaces the TPU kernels kernels/dwt53.py::lift_fwd_windows (body
 // _fwd_kernel) and ::lift_inv_windows (body _inv_kernel), which run one
-// level per call: here one launch runs L consecutive windowed levels of a
-// (rows, n) int32 signal, keeping every intermediate approximation in
+// level per call: here one launch runs L consecutive levels of a (rows,
+// n) int32 signal (windowed, or band-policy: see below; the reference
+// computes the latter in-graph), keeping every intermediate approximation in
 // shared memory.  A work item is `rb` rows of one tile; each row has its
 // own lanes (a power-of-two group of the block's 128 threads, fixed per
 // thread, so no sample pays a divide to find its row).  Blocks are
@@ -42,10 +43,21 @@
 // written core (held by the numpy mirror in tests/test_torch_lift1d_run.py
 // against the per-level plain versions).  Interior tiles reflect nothing.
 //
-// The window dataflow reproduces the band-policy reference only for
-// schemes that commute with whole-point reflection (scheme.can_window) on
-// every level's length; the run planner (kernels/dwt53.py) sends only such
-// runs here.
+// That reflection once a level reproduces the band-policy reference only
+// for schemes that commute with whole-point reflection (scheme.can_window)
+// on every level's length.  The reference (schemes.py _walk_policy)
+// reflects the current streams at every lifting STEP, so the POLICY
+// instantiation of both kernels (cdf22; haar on odd lengths; any run with
+// a level the scheme cannot window) follows each step, in a work item
+// whose window crosses a line end, with a barrier and a rewrite of the
+// step's target: each out-of-range entry in the step's valid range takes
+// the value of the in-range entry of the same stream that reflect_entry
+// names, where that entry is valid too.  The condition is the item's tile,
+// uniform over the block, so interior items pay nothing.  The planner
+// gives policy runs one more pair of margin than the scheme needs: a last
+// tile may hold a single in-range entry at some level, and the source of
+// its rewrite then lies one pair before its core (held by the numpy mirror
+// in tests/test_torch_policy_run.py against the band policy).
 //
 // Bound: memory.  A run reads the level-0 signal once and writes every
 // band once: 8 bytes per level-0 sample at 3.35 TB/s.  Overheads: the
@@ -132,12 +144,32 @@ __device__ __forceinline__ void lift_span(int32_t* tgt, const int32_t* src, cons
   }
 }
 
+// Rewrites the out-of-range entries of a stream's window plane t in [lo,
+// hi) (entry i is stream entry base + i; the stream holds len entries of
+// a length-n level) from the in-range entries reflect_entry names, where
+// those lie in [lo, hi) too.  Sources are in range, targets out of range:
+// no entry is both.
+__device__ __forceinline__ void reflect_plane(int32_t* t, int parity, int base, int n, int lo,
+                                              int hi, int lane, int tpr) {
+  const int len = parity ? n >> 1 : (n + 1) >> 1;
+  auto fix = [&](int i) {
+    const int r = reflect_entry(base + i, parity, n) - base;
+    if (r >= lo && r < hi) t[i] = t[r];
+  };
+  for (int i = lo + lane; i < min(hi, -base); i += tpr) fix(i);
+  for (int i = max(lo, len - base) + lane; i < hi; i += tpr) fix(i);
+}
+
 // Interior-only cascade (the reference's _walk_ext) over a window of pext
 // pairs held as planes (ev[i]: entry i of the even stream, od[i]: of the
 // odd), on lanes lane, lane + tpr, ... of the window's row group.  Every
-// thread of the block calls it: one barrier a step.
+// thread of the block calls it: one barrier a step.  POLICY, in an item
+// whose window crosses an end of the length-n level (`end`; entry i of a
+// plane is stream entry base + i): after each step, a rewrite of the
+// target's out-of-range entries and one more barrier.
+template <bool POLICY>
 __device__ void lift_row(int32_t* ev, int32_t* od, int pext, const Terms& c, int lane, int tpr,
-                         bool on) {
+                         bool on, int base, int n, bool end) {
   int lo[2] = {0, 0}, hi[2] = {pext, pext};
   for (int s = 0; s < c.nsteps; ++s) {
     const TermStep& st = c.steps[s];
@@ -160,6 +192,10 @@ __device__ void lift_row(int32_t* ev, int32_t* od, int pext, const Terms& c, int
     lo[tpar] = nlo;
     hi[tpar] = nhi;
     __syncthreads();
+    if (POLICY && end) {
+      if (on) reflect_plane(tpar ? od : ev, tpar, base, n, nlo, nhi, lane, tpr);
+      __syncthreads();
+    }
   }
 }
 
@@ -190,6 +226,7 @@ __device__ __forceinline__ void fwd_load(const int32_t* __restrict__ x, const Ge
   }
 }
 
+template <bool POLICY>
 __global__ void __launch_bounds__(kRunThreads)
     run_fwd_kernel(const int32_t* __restrict__ x, const __grid_constant__ Bands b,
                    const __grid_constant__ Geom g, const __grid_constant__ Terms c) {
@@ -220,7 +257,8 @@ __global__ void __launch_bounds__(kRunThreads)
     int start = t * Tk - E, W = Tk + 2 * E;
     int32_t *ev = A, *od = A + ha;
     for (int k = 0; k < g.levels; ++k) {
-      lift_row(ev, od, W >> 1, c, lane, tpr, on);
+      const bool crosses = start < 0 || start + W > n;
+      lift_row<POLICY>(ev, od, W >> 1, c, lane, tpr, on, start >> 1, n, crosses);
       const int ne = (n + 1) >> 1, no = n >> 1, half = Tk >> 1, p0 = t * half;
       const bool last = k + 1 == g.levels;
       const int E1 = last ? 0 : g.ext[k + 1];
@@ -294,6 +332,7 @@ __device__ __forceinline__ void inv_load(const Bands& b, const Geom& g, int item
   }
 }
 
+template <bool POLICY>
 __global__ void __launch_bounds__(kRunThreads)
     run_inv_kernel(const __grid_constant__ Bands b, int32_t* __restrict__ x,
                    const __grid_constant__ Geom g, const __grid_constant__ Terms c) {
@@ -325,7 +364,8 @@ __global__ void __launch_bounds__(kRunThreads)
     int32_t* ev = R + g.region[L];
     int32_t* od = R + g.region[k];
     for (;; --k) {
-      lift_row(ev, od, Wp, c, lane, tpr, on);
+      const bool crosses = a < 0 || 2 * (a + Wp) > n;
+      lift_row<POLICY>(ev, od, Wp, c, lane, tpr, on, a, n, crosses);
       if (k == 0) break;
       // level k-1's s plane: level k's samples (sample 2i in ev[i], 2i + 1
       // in od[i], valid from 2m to 2Wp - 2m), out-of-range entries
@@ -455,9 +495,11 @@ using namespace lift1d;
 // (host memory) holds levels + 1 device addresses, d_0 (rows, floor(n/2))
 // .. d_{L-1}, then s_{L-1} (rows, ceil(n_{L-1}/2)); `tile` level-0
 // samples (a multiple of 2^levels) and `rb` rows (at most 8) a work item,
-// forward margin m.  Returns a cudaError_t code.
+// forward margin m; `policy` nonzero: band-policy rewrites after every
+// step (the run has a level its scheme cannot window).  Returns a
+// cudaError_t code.
 extern "C" int repro_lift1d_run_fwd(int device, const int32_t* x, const long long* ptrs, int rows,
-                                    int n, int levels, int tile, int rb, int m,
+                                    int n, int levels, int tile, int rb, int m, int policy,
                                     const int32_t* table, int table_len, void* stream) {
   Cascade cas;
   cudaError_t e = parse_cascade(table, table_len, &cas);
@@ -471,13 +513,16 @@ extern "C" int repro_lift1d_run_fwd(int device, const int32_t* x, const long lon
   if ((e = cudaSetDevice(device)) != cudaSuccess) return e;
   const Terms c = pack_terms(cas);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return launch_persistent(run_fwd_kernel, device, g.items, bytes, st, x, b, g, c);
+  if (policy)
+    return launch_persistent(run_fwd_kernel<true>, device, g.items, bytes, st, x, b, g, c);
+  return launch_persistent(run_fwd_kernel<false>, device, g.items, bytes, st, x, b, g, c);
 }
 
 // Inverse run: the bands at `ptrs` (as the forward's) -> x (rows, n), with
-// inverse margin m.  Returns a cudaError_t code.
+// inverse margin m and `policy` as the forward's.  Returns a cudaError_t
+// code.
 extern "C" int repro_lift1d_run_inv(int device, const long long* ptrs, int32_t* x, int rows,
-                                    int n, int levels, int tile, int rb, int m,
+                                    int n, int levels, int tile, int rb, int m, int policy,
                                     const int32_t* table, int table_len, void* stream) {
   Cascade cas;
   cudaError_t e = parse_cascade(table, table_len, &cas);
@@ -491,5 +536,7 @@ extern "C" int repro_lift1d_run_inv(int device, const long long* ptrs, int32_t* 
   if ((e = cudaSetDevice(device)) != cudaSuccess) return e;
   const Terms c = pack_terms(cas);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return launch_persistent(run_inv_kernel, device, g.items, bytes, st, b, x, g, c);
+  if (policy)
+    return launch_persistent(run_inv_kernel<true>, device, g.items, bytes, st, b, x, g, c);
+  return launch_persistent(run_inv_kernel<false>, device, g.items, bytes, st, b, x, g, c);
 }

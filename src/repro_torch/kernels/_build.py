@@ -66,8 +66,8 @@ _SIGNATURES = {
         "repro_rice_decode": [_I] + [_P] * 3 + [_L, _P, _I, _P],
     },
     "lift1d": {
-        "repro_lift1d_run_fwd": [_I] + [_P] * 2 + [_I] * 6 + [_P, _I, _P],
-        "repro_lift1d_run_inv": [_I] + [_P] * 2 + [_I] * 6 + [_P, _I, _P],
+        "repro_lift1d_run_fwd": [_I] + [_P] * 2 + [_I] * 7 + [_P, _I, _P],
+        "repro_lift1d_run_inv": [_I] + [_P] * 2 + [_I] * 7 + [_P, _I, _P],
     },
     "whole3d": {
         "repro_whole3d_fwd": [_I] + [_P] * 16 + [_I] * 9 + [_P, _I, _P],

@@ -7,23 +7,30 @@ the scheme's reflect halo on both sides and runs the same interior-only
 lifting math (``schemes.lift_fwd_axis_ext`` / ``lift_inv_axis_ext``), so
 tiles are independent.  This reproduces the band-policy reference
 exactly for schemes that commute with whole-point reflection on the
-line's length (``scheme.can_window``); the level dispatcher
-(``kernels/ops.py``) routes only those here, and everything else to the
-row pass (:func:`rows_fwd` / :func:`rows_inv`, ``csrc/whole2d.cu``).
+line's length (``scheme.can_window``).
 
-On the card a **run** of consecutive windowed levels is one launch each
-way (``csrc/lift1d.cu``): a tile of T level-0 samples is read once, lifted
+On the card a **run** of consecutive levels is one launch each way
+(``csrc/lift1d.cu``): a tile of T level-0 samples is read once, lifted
 level after level in shared memory, and each level's d band written once
 (:func:`lift_fwd_run` / :func:`lift_inv_run`; the plan, cached per shape,
 scheme, mode and direction, splits a run only where no tile takes it,
-:func:`run_launches`).  A CPU tensor runs the plain versions
-:func:`lift_fwd_run_plain` / :func:`lift_inv_run_plain`: the per-level
-loop of :func:`lift_fwd_windows_plain` / :func:`lift_inv_windows_plain`,
-the windows gathered through the reference's index maps
-(:func:`fwd_window_index`, :func:`inv_window_index`) and the kernel
-bodies :func:`fwd_windows_math` / :func:`inv_windows_math` run on them.
-:func:`lift_fwd_windows` / :func:`lift_inv_windows` are one level at
-forced blocks: a run of one level on the card.
+:func:`run_launches`).  A run with a level its scheme cannot window
+(cdf22; haar on an odd length) is a **policy run**: the same kernels
+rewrite a line-end tile's out-of-range entries after every lifting step,
+as the reference's band policy reads them, and size windows one pair
+wider (:func:`run_policy`).  A CPU tensor runs the plain versions
+:func:`lift_fwd_run_plain` / :func:`lift_inv_run_plain`: for a windowed
+run the per-level loop of :func:`lift_fwd_windows_plain` /
+:func:`lift_inv_windows_plain`, the windows gathered through the
+reference's index maps (:func:`fwd_window_index`,
+:func:`inv_window_index`) and the kernel bodies
+:func:`fwd_windows_math` / :func:`inv_windows_math` run on them; for a
+policy run the per-level loop of the band-policy oracle
+(``schemes.lift_fwd_axis`` / ``lift_inv_axis``).
+:func:`lift_fwd_windows` / :func:`lift_inv_windows` are one windowed
+level at forced blocks: a run of one level on the card.  Lines under 8
+pairs take the row pass (:func:`rows_fwd` / :func:`rows_inv`,
+``csrc/whole2d.cu``), as the reference's ``_MIN_KERNEL_PAIRS`` fallback.
 """
 from __future__ import annotations
 
@@ -151,7 +158,7 @@ def lift_inv_windows_cuda(s: Tensor, d: Tensor, mode: str, block_rows: int, bloc
 
 
 # ---------------------------------------------------------------------------
-# Runs of windowed levels (csrc/lift1d.cu): one launch each way.
+# Runs of levels (csrc/lift1d.cu): one launch each way.
 # ---------------------------------------------------------------------------
 
 MAX_RUN = 16  # levels one launch takes (lift1d.cu kMaxRun)
@@ -165,13 +172,30 @@ def run_lengths(n: int, levels: int) -> List[int]:
     return out
 
 
+def run_policy(sch: S.LiftingScheme, n: int, levels: int) -> bool:
+    """Whether a run of ``levels`` levels from a length-n line is a policy
+    run: some level's length is one the scheme cannot window."""
+    return any(not sch.can_window(v) for v in run_lengths(n, levels))
+
+
+def run_margins(sch: S.LiftingScheme, policy: bool) -> Tuple[int, int]:
+    """The forward and inverse margins (pairs) a run's windows are sized
+    from: the scheme's, one more for a policy run.  The band policy's
+    rewrite of an out-of-range entry reads an in-range entry up to two
+    entries before the line's end; where the last tile holds a single
+    in-range entry at some level, that source lies a pair before the
+    core, past the scheme's own margin."""
+    return sch.fwd_margin + policy, sch.inv_margin + policy
+
+
 def run_launches(rows: int, n: int, levels: int, scheme="cdf53",
                  device=None) -> Tuple[Tuple[int, int, int], ...]:
-    """How a run of ``levels`` windowed levels over ``rows`` lines of ``n``
+    """How a run of ``levels`` levels over ``rows`` lines of ``n``
     samples launches: ``(levels, tile, block_rows)`` per launch, finest
     first; from each level the longest run (up to :data:`MAX_RUN`) that
-    a tile takes (``backend.run_tile``), so one launch unless the line is
-    too short or the run too deep for its reach."""
+    a tile takes (``backend.run_tile``, at :func:`run_margins`), so one
+    launch unless the line is too short or the run too deep for its
+    reach."""
     sch = S.get_scheme(scheme)
     return _run_launches(rows, n, levels, sch, device)
 
@@ -180,9 +204,10 @@ def run_launches(rows: int, n: int, levels: int, scheme="cdf53",
 def _run_launches(rows, n, levels, sch, device) -> Tuple[Tuple[int, int, int], ...]:
     out, k = [], 0
     lens = run_lengths(n, levels)
+    fm, im = run_margins(sch, run_policy(sch, n, levels))
     while k < levels:
         for cnt in range(min(levels - k, MAX_RUN), 0, -1):
-            pick = _backend.run_tile(rows, lens[k], cnt, sch.fwd_margin, sch.inv_margin, device)
+            pick = _backend.run_tile(rows, lens[k], cnt, fm, im, device)
             if pick is not None:
                 break
         out.append((cnt,) + pick)
@@ -219,10 +244,11 @@ class _RunPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def _run_plan(rows, n, levels, sch, mode, inverse, device, tile=None, block_rows=None) -> _RunPlan:
-    """The plan of a run of ``levels`` windowed levels of a (rows, n)
-    batch; ``tile`` / ``block_rows`` force one launch at that geometry
-    (the card tests, ``chip_smoke.py``) — one the card cannot take raises
-    at the launch."""
+    """The plan of a run of ``levels`` levels of a (rows, n) batch, a
+    policy run where :func:`run_policy` says so; ``tile`` /
+    ``block_rows`` force one launch at that geometry (the card tests,
+    ``chip_smoke.py``) — one the card cannot take raises at the
+    launch."""
     if tile is None:
         launches = _run_launches(rows, n, levels, sch, device)
     else:
@@ -230,11 +256,13 @@ def _run_plan(rows, n, levels, sch, mode, inverse, device, tile=None, block_rows
     lens = run_lengths(n, levels)
     table = _build.cascade_table(sch, mode, inverse)
     tail = (ctypes.c_void_p(table.ctypes.data), ctypes.c_int(len(table)))
-    margin = sch.inv_margin if inverse else sch.fwd_margin
+    policy = run_policy(sch, n, levels)
+    fm, im = run_margins(sch, policy)
+    margin = im if inverse else fm
     runs, k0 = [], 0
     for cnt, t, rb in launches:
         runs.append(_Launch(k0, cnt, tuple(
-            ctypes.c_int(v) for v in (rows, lens[k0], cnt, t, rb, margin)) + tail))
+            ctypes.c_int(v) for v in (rows, lens[k0], cnt, t, rb, margin, policy)) + tail))
         k0 += cnt
     if inverse:
         return _RunPlan(tuple(runs), tuple(lens), (), 0, (), table)
@@ -256,7 +284,7 @@ def _views(flat: Tensor, specs) -> List[Tensor]:
 def lift_fwd_run_cuda(x: Tensor, levels: int, mode: str, scheme="cdf53",
                       tile: Optional[int] = None, block_rows: Optional[int] = None):
     """Launch ``csrc/lift1d.cu``'s forward run on a (rows, n) int32 CUDA
-    batch: ``levels`` windowed levels, one launch per :func:`run_launches`
+    batch: ``levels`` levels, one launch per :func:`run_launches`
     entry (``tile`` / ``block_rows`` force one launch).  Returns the last
     level's s and each level's d, finest first, views of one allocation."""
     sch = S.get_scheme(scheme)
@@ -293,7 +321,7 @@ def run_input_len(s: Tensor, ds: Sequence[Tensor]) -> int:
 def lift_inv_run_cuda(s: Tensor, ds: Sequence[Tensor], mode: str, scheme="cdf53",
                       tile: Optional[int] = None, block_rows: Optional[int] = None) -> Tensor:
     """Launch ``csrc/lift1d.cu``'s inverse run: the coarsest s and each
-    level's d (finest first) of a run of windowed levels -> the (rows, n)
+    level's d (finest first) of a run of levels -> the (rows, n)
     level-0 signal, one launch per :func:`run_launches` entry."""
     sch = S.get_scheme(scheme)
     dev = _build.check_tensors("lift1d_inv", [s, *ds])
@@ -314,20 +342,32 @@ def lift_inv_run_cuda(s: Tensor, ds: Sequence[Tensor], mode: str, scheme="cdf53"
 
 def lift_fwd_run_plain(x: Tensor, levels: int, mode: str, scheme="cdf53"):
     """Plain version of a forward run: the per-level loop of
-    :func:`lift_fwd_windows_plain` (one tile a row).  Returns the last
-    level's s and each level's d, finest first."""
+    :func:`lift_fwd_windows_plain` (one tile a row), or of the band-policy
+    oracle for a policy run.  Returns the last level's s and each level's
+    d, finest first."""
+    sch = S.get_scheme(scheme)
+    policy = run_policy(sch, x.shape[1], levels)
     ds = []
     for _ in range(levels):
-        x, d = lift_fwd_windows_plain(x, mode, x.shape[1] - x.shape[1] // 2, scheme)
+        if policy:
+            x, d = S.lift_fwd_axis(x, sch, axis=-1, mode=mode)
+        else:
+            x, d = lift_fwd_windows_plain(x, mode, x.shape[1] - x.shape[1] // 2, sch)
         ds.append(d)
     return x, ds
 
 
 def lift_inv_run_plain(s: Tensor, ds: Sequence[Tensor], mode: str, scheme="cdf53") -> Tensor:
     """Plain version of an inverse run (``ds`` finest first): the
-    per-level loop of :func:`lift_inv_windows_plain`."""
+    per-level loop of :func:`lift_inv_windows_plain`, or of the
+    band-policy oracle for a policy run."""
+    sch = S.get_scheme(scheme)
+    policy = run_policy(sch, run_input_len(s, ds), len(ds))
     for d in reversed(ds):
-        s = lift_inv_windows_plain(s, d, mode, s.shape[1], scheme)
+        if policy:
+            s = S.lift_inv_axis(s, d, sch, axis=-1, mode=mode)
+        else:
+            s = lift_inv_windows_plain(s, d, mode, s.shape[1], sch)
     return s
 
 
@@ -368,22 +408,23 @@ def lift_inv_windows(s: Tensor, d: Tensor, mode: str, block_rows: int, block_pai
     return lift_inv_windows_plain(s, d, mode, block_pairs, sch)
 
 
-def _check_run(sch: S.LiftingScheme, n: int, levels: int) -> None:
+def _check_run(n: int, levels: int) -> None:
     if levels < 1:
         raise ValueError(f"a run has at least one level, got {levels}")
-    for v in run_lengths(n, levels):
-        _check_windowable(sch, v)
+    if run_lengths(n, levels)[-1] < 2:
+        raise ValueError(f"a line of {n} samples is too short for a run of {levels} levels")
 
 
 def lift_fwd_run(x: Tensor, levels: int, mode: str, scheme="cdf53"):
-    """A run of ``levels`` windowed forward levels over a (rows, n) int32
-    batch -> (last s, [d of each level, finest first]): the kernel for a
-    CUDA tensor, :func:`lift_fwd_run_plain` for a CPU tensor."""
+    """A run of ``levels`` forward levels (windowed or policy) over a
+    (rows, n) int32 batch -> (last s, [d of each level, finest first]):
+    the kernel for a CUDA tensor, :func:`lift_fwd_run_plain` for a CPU
+    tensor."""
     sch = S.get_scheme(scheme)
     _check_line(x)
     if x.dtype != torch.int32:
         raise TypeError(f"need an int32 batch, got {x.dtype}")
-    _check_run(sch, x.shape[1], levels)
+    _check_run(x.shape[1], levels)
     if _backend.on_cuda(x):
         return lift_fwd_run_cuda(x, levels, mode, sch)
     return lift_fwd_run_plain(x, levels, mode, sch)
@@ -395,7 +436,7 @@ def lift_inv_run(s: Tensor, ds: Sequence[Tensor], mode: str, scheme="cdf53") -> 
     sch = S.get_scheme(scheme)
     if s.dtype != torch.int32 or any(d.dtype != torch.int32 for d in ds):
         raise TypeError("need int32 bands")
-    _check_run(sch, run_input_len(s, ds), len(ds))
+    _check_run(run_input_len(s, ds), len(ds))
     if _backend.on_cuda(s):
         return lift_inv_run_cuda(s, ds, mode, sch)
     return lift_inv_run_plain(s, ds, mode, sch)
@@ -403,8 +444,8 @@ def lift_inv_run(s: Tensor, ds: Sequence[Tensor], mode: str, scheme="cdf53") -> 
 
 def rows_fwd_cuda(x: Tensor, mode: str, scheme="cdf53"):
     """Launch the row pass of ``csrc/whole2d.cu`` on a (rows, n) int32 CUDA
-    batch: the 1-D level for what the windowed kernel does not take (the
-    reference's in-graph ``lift_fwd_axis`` fallback, ``ops._fwd_level``)."""
+    batch: the 1-D level for lines under 8 pairs (the reference's
+    in-graph ``lift_fwd_axis`` fallback, ``ops._fwd_level``)."""
     sch = S.get_scheme(scheme)
     _check_line(x)
     dev = _build.check_tensors("rows1d_fwd", [x])

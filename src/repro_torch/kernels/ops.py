@@ -3,17 +3,20 @@
 Port of ``repro.kernels.ops``.  A transform runs where its input lives.
 One level over a ``(rows, n)`` int32 stream takes one of two engines:
 
-  * **windowed** (``kernels/dwt53.py``, ``csrc/lift1d.cu``) — halo'd tiles
-    of every line, one pass over device memory; taken when the line has
-    at least ``_MIN_KERNEL_PAIRS`` pairs and the scheme windows on its
-    length (``scheme.can_window``).  Consecutive windowed levels of a
-    pyramid form a run (:func:`level_runs_1d`) that is one launch each
-    way: the level-0 signal read once, every band written once.
+  * **run** (``kernels/dwt53.py``, ``csrc/lift1d.cu``) — halo'd tiles of
+    every line, one pass over device memory; taken when the line has at
+    least ``_MIN_KERNEL_PAIRS`` pairs, for every scheme.  Consecutive
+    such levels of a pyramid form a run (:func:`level_runs_1d`) that is
+    one launch each way: the level-0 signal read once, every band written
+    once.  A run whose scheme windows on every level's length
+    (``scheme.can_window``) reflects a tile's window once a level
+    (``windowed``); any other (``cdf22``; ``haar`` on an odd length) is a
+    policy run, whose line-end tiles reflect after every lifting step as
+    the band policy does (``policy``).
   * **row pass** (``csrc/whole2d.cu``) — whole lines with band-policy
-    reads at the borders; it takes every scheme and every ``n >= 2``, so
-    short lines, ``cdf22`` at any length and ``haar`` on odd lengths stay
-    on a kernel.  Where the reference falls back to in-graph band-policy
-    math, the port runs this kernel on a CUDA tensor.
+    reads at the borders, for lines under ``_MIN_KERNEL_PAIRS`` pairs.
+    Where the reference falls back to in-graph band-policy math on such
+    lines, the port runs this kernel on a CUDA tensor.
 
 Each engine is a kernel for a CUDA tensor and its plain PyTorch version
 for a CPU tensor.  Both give the oracle's bits (``core.lifting``), and
@@ -74,8 +77,9 @@ def _rows(a: Tensor) -> Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _windowed(sch: S.LiftingScheme, n: int) -> bool:
-    return n // 2 >= _MIN_KERNEL_PAIRS and sch.can_window(n)
+def _in_run(n: int) -> bool:
+    """Whether a length-n level runs on the run kernels (any scheme)."""
+    return n // 2 >= _MIN_KERNEL_PAIRS
 
 
 def _fwd_level(xf: Tensor, sch: S.LiftingScheme, mode: str) -> Tuple[Tensor, Tensor]:
@@ -83,7 +87,7 @@ def _fwd_level(xf: Tensor, sch: S.LiftingScheme, mode: str) -> Tuple[Tensor, Ten
     rows, n = xf.shape
     if rows == 0:
         return xf[:, : n - n // 2], xf[:, : n // 2]
-    if not _windowed(sch, n):
+    if not _in_run(n):
         return _k.rows_fwd(xf, mode, sch)
     s, ds = _k.lift_fwd_run(xf, 1, mode, sch)
     return s, ds[0]
@@ -95,7 +99,7 @@ def _inv_level(sf: Tensor, df: Tensor, sch: S.LiftingScheme, mode: str) -> Tenso
     n = n_e + df.shape[-1]
     if rows == 0:
         return sf.new_empty((0, n))
-    if not _windowed(sch, n):
+    if not _in_run(n):
         return _k.rows_inv(sf, df, mode, sch)
     return _k.lift_inv_run(sf, [df], mode, sch)
 
@@ -103,27 +107,33 @@ def _inv_level(sf: Tensor, df: Tensor, sch: S.LiftingScheme, mode: str) -> Tenso
 def level_runs_1d(n: int, levels: int, sch) -> List[Tuple[bool, int]]:
     """The levels of a pyramid from a length-n line grouped as they
     launch, finest first: ``(True, c)`` for each maximal run of c
-    consecutive windowed levels (:func:`_windowed` on each level's own
-    length), one call of ``dwt53.lift_fwd_run`` / ``lift_inv_run``;
-    ``(False, 1)`` for every other level (the row pass).  The 1-D
-    counterpart of ``fused2d.level_runs``."""
-    sch = S.get_scheme(sch)
+    consecutive levels of at least ``_MIN_KERNEL_PAIRS`` pairs
+    (:func:`_in_run` on each level's own length, whatever the scheme),
+    one call of ``dwt53.lift_fwd_run`` / ``lift_inv_run``; ``(False, 1)``
+    for every other level (the row pass).  The 1-D counterpart of
+    ``fused2d.level_runs``."""
+    S.get_scheme(sch)
     runs: List[Tuple[bool, int]] = []
     for _ in range(levels):
-        windowed = _windowed(sch, n)
-        if windowed and runs and runs[-1][0]:
+        in_run = _in_run(n)
+        if in_run and runs and runs[-1][0]:
             runs[-1] = (True, runs[-1][1] + 1)
         else:
-            runs.append((windowed, 1))
+            runs.append((in_run, 1))
         n -= n // 2
     return runs
 
 
 def plan_1d(n: int, device="cuda", scheme="cdf53") -> str:
     """Name the path a length-n level takes on ``device``:
-    ``windowed-cuda``, ``rows-cuda``, ``windowed-torch`` or ``rows-torch``
-    (the ``-torch`` names are the plain versions a CPU tensor runs)."""
-    kind = "windowed" if _windowed(S.get_scheme(scheme), n) else "rows"
+    ``windowed-*`` (a run level the scheme windows on this length),
+    ``policy-*`` (a run level it does not: cdf22, haar on odd n) or
+    ``rows-*`` (under 8 pairs); ``-cuda`` on the card, ``-torch`` for the
+    plain versions a CPU tensor runs."""
+    if not _in_run(n):
+        kind = "rows"
+    else:
+        kind = "windowed" if S.get_scheme(scheme).can_window(n) else "policy"
     return f"{kind}-{'cuda' if _backend.resolve_device(device).type == 'cuda' else 'torch'}"
 
 

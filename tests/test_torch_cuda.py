@@ -509,26 +509,33 @@ def _misaligned(t):
 # generic term loop (lift_terms) instead of the unrolled one
 WIDE = TS.scheme_from_spec("wide", [("predict", ((-1, 1), (0, 3), (1, 3), (2, 1)), 3, -1),
                                     ("update", ((-2, 1), (-1, 3), (0, 3), (1, 1)), 4, 1)])
+# an antisymmetric scheme of three steps, one of three taps (offsets -1 to
+# 2): its runs are policy runs at every length, through the generic loop
+ASYM = TS.scheme_from_spec("asym", [("predict", ((0, 1), (1, 1)), 1, -1),
+                                    ("update", ((0, 1),), 1, 1),
+                                    ("predict", ((2, 1), (-1, -1), (1, 3)), 2, 1, 2)])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("name", ["cdf53", "97m", "haar", "wide"])
+@pytest.mark.parametrize("name", ["cdf53", "97m", "haar", "wide", "cdf22", "asym"])
 def test_cuda_1d_run_kernels_match_plain_versions(name, mode, cuda_device):
-    """The run kernels (one launch a run of windowed levels) against the
-    run's plain versions: runs of 1-6 levels, n = 16-40, 1001, 4099 and
+    """The run kernels (one launch a run of levels) against the run's
+    plain versions: runs of 1-6 levels, n = 16-40, 1001, 4099 and
     65,537, at the plan's tile, at forced tiles of 2^L and 3 x 2^L
     samples with 1-3 rows a block, on tensors 4 bytes past a 16-byte
     boundary, and at int32 extremes; ``wide`` (six terms a step) takes the
-    generic term loop, the registered schemes the unrolled one."""
+    generic term loop, the registered schemes the unrolled one.  cdf22,
+    ``asym`` and haar on odd lengths are policy runs (a rewrite after
+    every step at the line ends), the others windowed runs."""
     from repro_torch.kernels import dwt53 as TD
 
     rng = np.random.default_rng(22)
-    sch = WIDE if name == "wide" else TS.get_scheme(name)
+    sch = {"wide": WIDE, "asym": ASYM}.get(name) or TS.get_scheme(name)
     for n in list(range(16, 41)) + [1001, 4099, 65537]:
         for levels in range(1, 7):
             lens = TD.run_lengths(n, levels)
-            if lens[-1] < 2 or not all(sch.can_window(v) for v in lens):
+            if lens[-1] < 2:
                 continue
             unit = 1 << levels
             for kind in ("rand", "min", "max") if n <= 1001 else ("rand",):
@@ -558,6 +565,7 @@ def test_cuda_1d_library_and_codec_paths(cuda_device):
 
     rng = np.random.default_rng(13)
     x = torch.from_numpy(_img(rng, (2, 3, 4099), -30000, 30000)).to(cuda_device)
+    short = torch.from_numpy(_img(rng, (5, 13), -30000, 30000)).to(cuda_device)
     TK.launches.reset()
     for name in SCHEMES:
         pyr = TK.dwt_fwd(x, levels=4, scheme=name, checked=True)
@@ -569,16 +577,25 @@ def test_cuda_1d_library_and_codec_paths(cuda_device):
         assert blob == TCODEC.encode_pyramid(want, scheme=name)
         dec = TCODEC.decode_pyramid(blob, device=cuda_device)
         assert torch.equal(TCODEC.inverse_transform(dec), x)
+        # a line under 8 pairs takes the row pass
+        s, d = TK.dwt_fwd_1d(short, scheme=name, checked=True)
+        for a, b in zip((s, d), TK.dwt_fwd_1d(short.cpu(), scheme=name)):
+            assert torch.equal(a.cpu(), b)
+        assert torch.equal(TK.dwt_inv_1d(s, d, scheme=name, checked=True), short)
     counts = TK.launches.snapshot()
     assert all(counts.get(k, 0) > 0 for k in
                ("lift1d_fwd", "lift1d_inv", "rows1d_fwd", "rows1d_inv")), counts
-    # an unchecked multi-level pyramid whose levels all window is one run:
-    # one lift1d launch each way
-    for name in ("cdf53", "97m", "haar"):
-        xl = torch.from_numpy(_img(rng, (64, 65536), -32768, 32768)).to(cuda_device)
+    # an unchecked multi-level pyramid of lines of 8 pairs or more at every
+    # level is one run, windowed or policy: one lift1d launch each way
+    for name, n in (("cdf53", 65536), ("97m", 65536), ("haar", 65536), ("cdf22", 65536),
+                    ("haar", 65537), ("cdf22", 4099)):
+        xl = torch.from_numpy(_img(rng, (64, n), -32768, 32768)).to(cuda_device)
         TK.launches.reset()
         pyr = TK.dwt_fwd(xl, levels=4, scheme=name, checked=False)
         assert TK.launches.snapshot() == {"lift1d_fwd": 1}
+        want = TK.dwt_fwd(xl.cpu(), levels=4, scheme=name)
+        for a, b in zip((pyr.approx,) + pyr.details, (want.approx,) + want.details):
+            assert torch.equal(a.cpu(), b), (name, n)
         assert torch.equal(TK.dwt_inv(pyr, scheme=name, checked=False), xl)
         assert TK.launches.snapshot() == {"lift1d_fwd": 1, "lift1d_inv": 1}
     with pytest.raises(OverflowError):

@@ -315,14 +315,17 @@ def test_window_bodies_equal_the_reference_kernels_on_gathered_windows(name):
 @pytest.mark.parametrize(
     "n,name,plan",
     [(16, "cdf53", "windowed-torch"), (15, "cdf53", "rows-torch"), (17, "97m", "windowed-torch"),
-     (64, "cdf22", "rows-torch"), (64, "haar", "windowed-torch"), (65, "haar", "rows-torch"),
+     (64, "cdf22", "policy-torch"), (64, "haar", "windowed-torch"), (65, "haar", "policy-torch"),
      (3, "97m", "rows-torch")],
 )
 def test_plan_1d_names_the_path(n, name, plan):
-    """Short lines (< 8 pairs) and unwindowable schemes take the row pass,
-    as the reference's ``_MIN_KERNEL_PAIRS`` / ``can_window`` fallbacks."""
+    """Short lines (< 8 pairs) take the row pass, as the reference's
+    ``_MIN_KERNEL_PAIRS`` fallback; longer ones a run, windowed where the
+    scheme windows the length (``can_window``), else a policy run (the
+    reference's in-graph band-policy fallback)."""
     assert TK.plan_1d(n, "cpu", name) == plan
     assert TO._MIN_KERNEL_PAIRS == RO._MIN_KERNEL_PAIRS
+    assert (plan == "rows-torch") == (n // 2 < RO._MIN_KERNEL_PAIRS)
     assert (plan == "windowed-torch") == (n // 2 >= RO._MIN_KERNEL_PAIRS
                                           and RK.get_scheme(name).can_window(n))
     if not TS.get_scheme(name).can_window(n):  # the windowed wrapper refuses it

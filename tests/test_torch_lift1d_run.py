@@ -261,32 +261,42 @@ def test_mirror_windows_fit_the_rows_shared_memory(levels):
 @pytest.mark.parametrize("name", ["cdf53", "97m", "haar", "cdf22"])
 @pytest.mark.parametrize("n", [16, 33, 100, 4099, 60000, 65537])
 def test_level_runs_split_at_the_first_level_that_does_not_window(name, n):
-    """``level_runs_1d`` groups consecutive levels that ``_windowed``
-    takes (haar only on even lengths, no line under 8 pairs, cdf22
-    never) and gives every other level alone, in level order; each
-    level's ``plan_1d`` agrees."""
+    """``level_runs_1d`` groups consecutive levels of 8 pairs or more
+    (``_in_run``), windowed or policy, whatever the scheme, and gives
+    every shorter level alone, in level order; each level's ``plan_1d``
+    agrees: ``windowed-torch`` where the scheme windows the length,
+    ``policy-torch`` where it does not (cdf22 always, haar on odd
+    lengths), ``rows-torch`` under 8 pairs."""
     sch = TS.get_scheme(name)
     levels = 6
     runs = TO.level_runs_1d(n, levels, sch)
     assert sum(c for _, c in runs) == levels
     flat = [w for w, c in runs for _ in range(c)]
     lens = TD.run_lengths(n, levels)
-    assert flat == [TO._windowed(sch, v) for v in lens]
-    assert flat == [TO.plan_1d(v, "cpu", name) == "windowed-torch" for v in lens]
+    assert flat == [TO._in_run(v) for v in lens] == [v >= 16 for v in lens]
+    plans = [TO.plan_1d(v, "cpu", name) for v in lens]
+    assert flat == [p != "rows-torch" for p in plans]
+    for w, v, p in zip(flat, lens, plans):
+        if w:
+            assert p == ("windowed-torch" if sch.can_window(v) else "policy-torch")
     for (w1, _), (w2, _) in zip(runs, runs[1:]):
         assert not (w1 and w2)  # maximal runs
     assert all(c == 1 for w, c in runs if not w)
     if name == "cdf22":
-        assert not any(flat)
+        assert all(p != "windowed-torch" for p in plans)
     if name == "haar":
-        assert all(w == (v % 2 == 0 and v >= 16) for w, v in zip(flat, lens))
+        assert all((p == "policy-torch") == (v % 2 == 1 and v >= 16)
+                   for v, p in zip(lens, plans))
 
 
 def test_level_runs_of_the_repo_configs():
     assert TO.level_runs_1d(65536, 4, "cdf53") == [(True, 4)]
     assert TO.level_runs_1d(65536, 4, "haar") == [(True, 4)]
-    assert TO.level_runs_1d(4099, 4, "haar") == [(False, 1), (True, 1), (False, 1), (False, 1)]
+    assert TO.level_runs_1d(4099, 4, "haar") == [(True, 4)]
+    assert TO.level_runs_1d(65536, 4, "cdf22") == [(True, 4)]
+    assert TO.level_runs_1d(2048 * 5632, 4, "cdf22") == [(True, 4)]
     assert TO.level_runs_1d(100, 4, "97m") == [(True, 3), (False, 1)]
+    assert TO.level_runs_1d(100, 4, "cdf22") == [(True, 3), (False, 1)]
     assert TO.level_runs_1d(15, 2, "cdf53") == [(False, 1), (False, 1)]
 
 
@@ -390,12 +400,15 @@ def test_forced_blocks_are_a_run_of_one_level(recorder):
 
 
 @pytest.mark.parametrize("name,n,runs", [("cdf53", 65536, 1), ("haar", 65536, 1),
-                                         ("97m", 65536, 1), ("haar", 4099, 1)])
+                                         ("97m", 65536, 1), ("haar", 4099, 1),
+                                         ("cdf22", 65536, 1), ("haar", 65537, 1),
+                                         ("cdf22", 4099, 1)])
 def test_unchecked_pyramid_launches_once_a_run(recorder, monkeypatch, name, n, runs):
     """An unchecked ``dwt_fwd(levels=4)`` / ``dwt_inv`` of a line whose
-    levels all window launches ``lift1d_fwd`` / ``lift1d_inv`` once each
-    (the ``LARGE`` configs); haar at 4099 runs its one windowed level as
-    a run between row passes."""
+    levels all have 8 pairs or more launches ``lift1d_fwd`` /
+    ``lift1d_inv`` once each: windowed runs (the ``LARGE`` configs) and
+    policy runs (cdf22; haar at 4099 and 65,537, odd levels) alike, and
+    no row pass."""
     monkeypatch.setattr(TB, "on_cuda", lambda t: True)
     monkeypatch.setattr(TD, "rows_fwd_cuda", lambda x, mode, scheme: TS.lift_fwd_axis(
         x, scheme, axis=-1, mode=mode))

@@ -69,14 +69,22 @@ LEVELS = 4
 PCM16 = (-32768, 32768)
 
 # the cascade calls of csrc/lift1d.cu, one per direction: those of the
-# per-level kernels (before the run kernels) and of the run kernels; a
-# variant cuts whichever the source holds
+# per-level kernels (before the run kernels), of the run kernels, and of
+# the run kernels with policy runs; a variant cuts whichever the source
+# holds
 CASCADES = (
     ("  cascade_ext<false>(win, 1, W, nr, W / 2, c);\n",
      "  cascade_ext<false>(win, 1, W, nr, P, c);\n"),
     ("      lift_row(ev, od, W >> 1, c, lane, tpr, on);\n",
      "      lift_row(ev, od, Wp, c, lane, tpr, on);\n"),
+    ("      lift_row<POLICY>(ev, od, W >> 1, c, lane, tpr, on, start >> 1, n, crosses);\n",
+     "      lift_row<POLICY>(ev, od, Wp, c, lane, tpr, on, a, n, crosses);\n"),
 )
+
+
+# the argument of each run launcher that points to a host table of band
+# addresses (its levels are argument 5)
+BAND_TABLE_ARG = {"repro_lift1d_run_fwd": 2, "repro_lift1d_run_inv": 1}
 
 
 def warm(dev) -> None:
@@ -101,7 +109,15 @@ class Recorder:
         orig_call = _build.call
 
         def call(name, fn, args):
-            self.calls.append((name, fn, tuple(args)))
+            args = tuple(args)
+            if fn in BAND_TABLE_ARG:  # the wrapper frees its host table of band
+                i = BAND_TABLE_ARG[fn]  # addresses after the call: keep a copy
+                count = args[5].value + 1  # levels + 1 addresses
+                table = np.frombuffer((ctypes.c_int64 * count).from_address(args[i]),
+                                      np.int64).copy()
+                self.keep.append(table)
+                args = args[:i] + (table.ctypes.data,) + args[i + 1:]
+            self.calls.append((name, fn, args))
             return orig_call(name, fn, args)
 
         self.saved.append((_build, "call", orig_call))
