@@ -136,7 +136,35 @@ Phases (any failure raises and the script exits nonzero):
    request, its events, device and host time as one launch), for each slab level which plane path ran and the device ms of each
    kernel it launched (``torch.profiler``), for each whole-volume level
    its device ms, the host's us per wrapper call and the cluster size.
-10. Print the ``{"kernels": [...]}`` line, the card line, and last the
+10. Checkpoints: stablelm-2-1.6b at full width (``src/repro/configs/
+   stablelm_1_6b.py``: d_model 2048, 32 heads of 64, d_ff 5632, vocab
+   100,352, LayerNorm scale and bias, swiglu, untied head; the
+   parameter tree of ``repro.models.transformer.model_defs`` written out
+   here), depth cut from 24 to 4 layers, bfloat16, normal(0, 0.02) from
+   ``--seed``.  With the counters reset just before and read just after,
+   and the plain-version guard (1-D, 2-D and 3-D plain versions, the Rice
+   coder's): the tree saved once with each codec (raw, z, wz, wz2d,
+   wz3d, wz-rice; cdf53, 2 levels; and wz with cdf22) through
+   ``repro_torch.ckpt.CheckpointManager`` and restored on the card (raw
+   and z bit-exact; the wavelet codecs within 0.51 x each leaf's scale
+   plus one bfloat16 rounding), each save and restore timed stage by
+   stage (the stage functions of ``ckpt/checkpoint.py`` wrapped while it
+   runs: a device sync at each stage's ends, CUDA events around each);
+   one band of a wz-rice leaf damaged (restore warns
+   ``DegradedRestoreWarning`` and returns the undamaged values) and a z
+   leaf damaged (``CheckpointIntegrityError``); a ``TrainLoopRunner``
+   crashed at step 13 resumes to equal an uninterrupted run; the gradient
+   sync's analytic and measured bytes with the spatial codecs off and
+   on.  Every kernel the planner names for a leaf must have launched and
+   no plain version may have run on a CUDA tensor.  Then, the guard
+   paused and the files still on disk, each wavelet leaf's quantized
+   int32 must equal the host numpy rule (``torch.equal``), its payload
+   the plain versions' chain on the card (``==``), and its restored
+   values that rule's int32 times the scale in float32, cast to the
+   leaf's dtype (``torch.equal``: the integer transform is lossless); and
+   a CUDA divide by a Python float is counted against that rule.
+11. Print the ``{"kernels": [...]}`` line (each kernel with its launches
+   on the checkpoint path too), the card line, and last the
    ``{"ok": true, ...}`` line.  ``--json-out PATH`` also writes the whole
    record (every batch latency, every level's, band's and shape's time)
    to PATH.
@@ -144,13 +172,20 @@ Phases (any failure raises and the script exits nonzero):
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
+import dataclasses
 import functools
 import json
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
+import zlib
 
 import numpy as np
 import torch
@@ -1209,7 +1244,8 @@ def run_sweep_1d(rng, dev) -> int:
 
 class PlainGuard:
     """Counts calls of the plain versions with a CUDA tensor (or a CUDA
-    ``device``) while active: on the main path there must be none."""
+    ``device``) while active: on the main path there must be none.
+    ``paused()`` stops counting for comparisons that call them on purpose."""
 
     TARGETS = (
         ("repro_torch.kernels.dwt53", ("lift_fwd_windows_plain", "lift_inv_windows_plain")),
@@ -1218,12 +1254,22 @@ class PlainGuard:
         ("repro_torch.core.schemes", ("lift_fwd_axis", "lift_inv_axis")),
         ("repro_torch.codec.rice", ("encode_band_plain", "decode_band_plain")),
     )
+    # the 2-D levels' and the 1-D runs' plain versions (the checkpoint path)
+    TARGETS_2D = (
+        ("repro_torch.kernels.dwt53", ("lift_fwd_run_plain", "lift_inv_run_plain")),
+        ("repro_torch.kernels.fused2d", ("fwd2d_chain_plain", "inv2d_chain_plain",
+                                         "_fwd2d_math", "_inv2d_math")),
+        ("repro_torch.kernels.tiled2d", ("fwd2d_tiled_plain", "inv2d_tiled_plain")),
+    )
+
+    def __init__(self, targets=TARGETS):
+        self.targets = targets
 
     def __enter__(self):
         import importlib
 
-        self.calls, self.saved = {}, []
-        for mod_name, fns in self.TARGETS:
+        self.calls, self.saved, self.active = {}, [], True
+        for mod_name, fns in self.targets:
             mod = importlib.import_module(mod_name)
             for fn in fns:
                 orig = getattr(mod, fn)
@@ -1234,12 +1280,21 @@ class PlainGuard:
     def _wrap(self, label, orig):
         def wrapped(*args, **kwargs):
             vals = list(args) + list(kwargs.values())
-            if any((isinstance(v, torch.Tensor) and v.is_cuda)
-                   or (isinstance(v, (str, torch.device)) and str(v).startswith("cuda"))
-                   for v in vals):
+            if self.active and any(
+                    (isinstance(v, torch.Tensor) and v.is_cuda)
+                    or (isinstance(v, (str, torch.device)) and str(v).startswith("cuda"))
+                    for v in vals):
                 self.calls[label] = self.calls.get(label, 0) + 1
             return orig(*args, **kwargs)
         return wrapped
+
+    @contextlib.contextmanager
+    def paused(self):
+        self.active = False
+        try:
+            yield
+        finally:
+            self.active = True
 
     def __exit__(self, *exc):
         for mod, fn, orig in self.saved:
@@ -2139,6 +2194,578 @@ def time_3d(rng, dev) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: checkpoints of a full-width stablelm-2-1.6b.
+# ---------------------------------------------------------------------------
+
+# src/repro/configs/stablelm_1_6b.py at full width; depth cut from 24 to 4
+# layers, the least at which the stacked leaves take the 3-D route (each
+# of the three trailing dims >= 4)
+STABLELM = {"d_model": 2048, "n_heads": 32, "head_dim": 64, "d_ff": 5632, "vocab": 100352}
+CKPT_LAYERS = 4
+# (codec, scheme), each on the whole tree
+CKPT_CODECS = (("raw", "cdf53"), ("z", "cdf53"), ("wz", "cdf53"), ("wz2d", "cdf53"),
+               ("wz3d", "cdf53"), ("wz-rice", "cdf53"), ("wz", "cdf22"))
+# the prefix of each plan name's kernel counters, by the pyramid's rank
+PLAN_KERNELS = {("1d", "windowed-cuda"): "lift1d", ("1d", "policy-cuda"): "lift1d",
+                ("1d", "rows-cuda"): "rows1d", ("2d", "whole-cuda"): "whole2d",
+                ("2d", "tiled-cuda"): "tiled2d", ("3d", "whole-cuda"): "whole3d",
+                ("3d", "slab-cuda"): "slab3d"}
+
+
+@dataclasses.dataclass
+class ParamSpec:
+    shape: tuple
+    init: str  # normal | ones | zeros
+
+
+def stablelm_spec(layers: int = CKPT_LAYERS) -> dict:
+    """The parameter tree of ``repro.models.transformer.model_defs`` for
+    stablelm-2-1.6b (scan-over-layers stacks, LayerNorm scale and bias,
+    swiglu, untied head), written out: this script imports no ``repro``."""
+    d, h, hd, f, v = (STABLELM[k] for k in ("d_model", "n_heads", "head_dim", "d_ff", "vocab"))
+
+    def norm(*lead):
+        return {"scale": ParamSpec(lead + (d,), "ones"), "bias": ParamSpec(lead + (d,), "zeros")}
+
+    return {
+        "embed": {"embedding": ParamSpec((v, d), "normal")},
+        "layers": {
+            "ln1": norm(layers),
+            "attn": {"wq": ParamSpec((layers, d, h, hd), "normal"),
+                     "wk": ParamSpec((layers, d, h, hd), "normal"),
+                     "wv": ParamSpec((layers, d, h, hd), "normal"),
+                     "wo": ParamSpec((layers, h, hd, d), "normal")},
+            "ln2": norm(layers),
+            "mlp": {"w_gate": ParamSpec((layers, d, f), "normal"),
+                    "w_up": ParamSpec((layers, d, f), "normal"),
+                    "w_down": ParamSpec((layers, f, d), "normal")},
+        },
+        "ln_f": norm(),
+        "head": {"w_out": ParamSpec((d, v), "normal")},
+    }
+
+
+def stablelm_params(rng, dev, layers: int = CKPT_LAYERS) -> dict:
+    """bfloat16 parameters on the card: normal(0, 0.02) matrices from
+    ``rng`` (numpy), ones for scales, zeros for biases."""
+    from repro_torch import tree as T
+
+    def make(spec):
+        if spec.init == "normal":
+            host = rng.standard_normal(spec.shape, dtype=np.float32)
+            return torch.from_numpy(host).to(dev).mul_(0.02).to(torch.bfloat16)
+        fill = torch.ones if spec.init == "ones" else torch.zeros
+        return fill(spec.shape, dtype=torch.bfloat16, device=dev)
+
+    return T.map_leaves(make, stablelm_spec(layers))
+
+
+class StageTimer:
+    """While active, host ms per stage of a checkpoint save or restore (a
+    device sync before and after each) and the stage's CUDA-event ms: it
+    wraps the stage functions of ``ckpt/checkpoint.py`` and the zlib,
+    sha256 and Rice-container calls it makes, as PlainGuard wraps the
+    plain versions.  What no stage covers (file reads, the manifest,
+    renames) is the total less the stages."""
+
+    STAGES = (("ck", "_snapshot", "snapshot"), ("ck", "_quantize_for_wz", "quantize"),
+              ("ck", "_pyramid", "transform"), ("ck", "_band_pack", "transform"),
+              ("ck", "_unpyramid", "transform"), ("container", "inverse_transform", "transform"),
+              ("ck", "_host_bytes", "d2h"), ("ck", "_h2d", "h2d"),
+              ("ck", "_dequantized", "dequantize"), ("ck", "_write_file_synced", "write"),
+              ("ck", "_fsync_dir", "write"), ("container", "encode_pyramid", "rice_encode"),
+              ("container", "decode_pyramid", "rice_decode"), ("zlib", "compress", "zlib"),
+              ("zlib", "decompress", "zlib"), ("hashlib", "sha256", "sha256"))
+
+    def __init__(self, dev):
+        self.dev, self.ms, self.event_ms, self._inside, self._saved = dev, {}, {}, False, []
+
+    def _wrap(self, fn, stage):
+        def timed(*args, **kwargs):
+            if self._inside:  # a stage within a stage counts once
+                return fn(*args, **kwargs)
+            self._inside = True
+            try:
+                torch.cuda.synchronize(self.dev)
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                t = time.perf_counter()
+                a.record()
+                out = fn(*args, **kwargs)
+                b.record()
+                torch.cuda.synchronize(self.dev)
+            finally:
+                self._inside = False
+            self.ms[stage] = self.ms.get(stage, 0.0) + (time.perf_counter() - t) * 1e3
+            self.event_ms[stage] = self.event_ms.get(stage, 0.0) + a.elapsed_time(b)
+            return out
+        return timed
+
+    def __enter__(self):
+        import hashlib
+        import types
+
+        from repro_torch.ckpt import checkpoint as CK
+        from repro_torch.codec import container
+
+        owners = {"ck": CK, "container": container,
+                  "zlib": types.SimpleNamespace(compress=zlib.compress, decompress=zlib.decompress),
+                  "hashlib": types.SimpleNamespace(sha256=hashlib.sha256)}
+        self._saved = [(CK, "zlib", CK.zlib), (CK, "hashlib", CK.hashlib)]
+        CK.zlib, CK.hashlib = owners["zlib"], owners["hashlib"]
+        for owner, attr, stage in self.STAGES:
+            obj = owners[owner]
+            self._saved.append((obj, attr, getattr(obj, attr)))
+            setattr(obj, attr, self._wrap(getattr(obj, attr), stage))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, attr, fn in reversed(self._saved):
+            setattr(obj, attr, fn)
+        return False
+
+    def with_rest(self, total_ms: float) -> dict:
+        """The stages' host ms and, under "rest", what they leave of the total."""
+        return dict(self.ms, rest=total_ms - sum(self.ms.values()))
+
+
+def wz_leaf_plan(codec: str, scheme: str, shape, levels: int):
+    """(route, levels, quantization limit) a wavelet codec takes for a leaf
+    (``ckpt/checkpoint.py``'s own rules)."""
+    from repro_torch.ckpt import checkpoint as CK
+
+    if codec == "wz-rice":
+        route, lv = CK._wzrice_plan(tuple(shape), levels, scheme)
+        return route, lv, 32767.0
+    route = "1d" if codec == "wz" else CK._wavelet_route(tuple(shape), want_3d=codec == "wz3d")
+    if route == "3d":
+        lv = CK._wz3d_levels(*shape[-3:], levels)
+    elif route == "2d":
+        lv = CK._wz2d_levels(shape[-2], shape[-1], levels)
+    else:
+        lv = levels
+    nd = int(route[0])
+    return route, lv, CK._wz_quant_limit(float(32767 >> (nd * lv + 1)), scheme, lv, nd)
+
+
+def _level_dims(route: str, shape, lv: int) -> list:
+    """The trailing dims each level of a leaf's pyramid transforms."""
+    if route == "1d":
+        n = -(-int(np.prod(shape)) // (1 << lv)) * (1 << lv)  # padded to 2**lv
+        dims = [(n,)]
+    else:
+        dims = [tuple(shape[-int(route[0]):])]
+    for _ in range(lv - 1):
+        dims.append(tuple(x - x // 2 for x in dims[-1]))
+    return dims
+
+
+def leaf_plans(route: str, shape, lv: int, scheme: str, dev) -> list:
+    """The planner's answer for every level of a leaf's pyramid."""
+    from repro_torch import kernels as K
+
+    plan = {"1d": K.plan_1d, "2d": K.plan_2d, "3d": K.plan_3d}[route]
+    return [plan(*dims, device=dev, scheme=scheme) for dims in _level_dims(route, shape, lv)]
+
+
+def numpy_quantize(arr32: np.ndarray, lim: float):
+    """The reference's host rule (``repro.ckpt.checkpoint._quantize_for_wz``)."""
+    scale = float(np.max(np.abs(arr32)) or 1.0) / lim
+    scale = max(scale, 1e-12)
+    return np.clip(np.round(arr32 / scale), -lim, lim).astype(np.int32), scale
+
+
+def plain_chain(route: str, lv: int, q, scheme: str, codec: str):
+    """The payload a wavelet codec writes, from the plain versions on the
+    card: the int16 band pack (zlib codecs) or the WZRC container
+    (wz-rice, plain Rice encode of every band)."""
+    from repro_torch.codec import container as C
+    from repro_torch.codec import rice as R
+    from repro_torch.core import lifting as L
+
+    if route == "1d":
+        flat = q.reshape(-1)
+        pad = (-flat.numel()) % (1 << lv)
+        flat = torch.cat([flat, flat.new_zeros(pad)]) if pad else flat
+        pyr = L.dwt_fwd(flat[None], levels=lv, scheme=scheme)
+        packed, ndim = L.pack(pyr)[0], None
+    elif route == "2d":
+        pyr = L.dwt_fwd_2d_multi(q.reshape((-1,) + tuple(q.shape[-2:])), levels=lv, scheme=scheme)
+        packed, ndim = L.pack2d(pyr), None
+    else:
+        pyr = L.dwt_fwd_nd(q.reshape((-1,) + tuple(q.shape[-3:])), levels=lv, scheme=scheme,
+                           ndim=3)
+        packed, ndim = L.pack_nd(pyr), 3
+    if codec != "wz-rice":
+        return packed.to(torch.int16).cpu().numpy().tobytes()
+    kind = C._pyramid_kind(pyr)
+    nd, lead, shape = C._infer_geometry(pyr, kind, ndim)
+    coded = [R.encode_band_plain(b.reshape(-1), chunk_blocks=8192)
+             for b in C._flatten_bands(pyr, kind)]
+    return C.assemble(coded, kind, scheme, "paper", np.dtype(np.int32), lv, nd, lead, shape,
+                      parity=True)
+
+
+def _damage_one_band(path: pathlib.Path) -> None:
+    """Flip one byte in the middle of a container's largest band."""
+    from repro_torch.codec import container as C
+    from repro_torch.resilience import inject
+
+    data = path.read_bytes()
+    h = C._parse_header(data)
+    i = int(np.argmax(h.blob_lens))
+    path.write_bytes(inject.flip_byte(data, h.body_off + sum(h.blob_lens[:i]) + h.blob_lens[i] // 2))
+
+
+def _restore_error(tree, out, man) -> dict:
+    """Per leaf: max |restored - saved| and its bound (0.51 x the leaf's
+    scale, plus one bfloat16 rounding of its largest value)."""
+    from repro_torch import tree as T
+
+    got = dict(T.leaf_paths(out))
+    errs = {}
+    for name, x in T.leaf_paths(tree):
+        y = got[name]
+        if y.dtype != x.dtype or y.shape != x.shape or y.device != x.device:
+            raise AssertionError(f"restored {name}: {y.dtype} {tuple(y.shape)} {y.device}")
+        err = float((y.float() - x.float()).abs().max())
+        bound = 0.51 * man[name]["meta"]["scale"] + float(x.float().abs().max()) * 2.0**-8
+        if not err <= bound:
+            raise AssertionError(f"restored {name}: max |err| {err} > bound {bound}")
+        errs[name] = (err, bound)
+    return errs
+
+
+def _diff(after: dict, before: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in sorted(after) if after[k] != before.get(k, 0)}
+
+
+def require_launched(label: str, counts: dict, want, plain_calls: dict) -> None:
+    """Every kernel in ``want`` launched on the path; no plain version ran
+    on a CUDA tensor."""
+    missing = sorted(k for k in want if not counts.get(k))
+    if missing:
+        raise AssertionError(f"{label}: kernels the plans name never launched: {missing}")
+    if plain_calls:
+        raise AssertionError(f"{label}: plain versions ran on CUDA tensors: {plain_calls}")
+
+
+def checkpoint_path(rng, dev, card: str) -> dict:
+    """Phase 10: save and restore a full-width stablelm-2-1.6b (4 layers,
+    bfloat16) with every codec on the card, heal a damaged wz-rice leaf,
+    refuse a damaged z leaf, resume a train loop, account a gradient sync;
+    the counters and the plain-version guard cover exactly that path; each
+    codec's payload bytes are then held against the plain versions' (the
+    guard paused, the files still on disk)."""
+    from repro_torch import kernels as K
+    from repro_torch import tree as T
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.ckpt import checkpoint as CK
+    from repro_torch.resilience.errors import CheckpointIntegrityError, DegradedRestoreWarning
+    from repro_torch.train import grad_compress as G
+
+    t0 = time.perf_counter()
+    tree = stablelm_params(rng, dev)
+    torch.cuda.synchronize(dev)
+    n_params = sum(x.numel() for x in T.leaves(tree))
+    made_s = time.perf_counter() - t0
+    host32 = {}  # float32 host copies, for the numpy rule
+    quant_cache = {}
+    root = pathlib.Path(tempfile.mkdtemp(prefix="ckpt_smoke_", dir=ROOT / "build"))
+    ckdir = root / "ckpt"
+    per_codec, plans = {}, {}
+    try:
+        K.launches.reset()
+        with PlainGuard(PlainGuard.TARGETS + PlainGuard.TARGETS_2D) as guard:
+            for codec, scheme in CKPT_CODECS:
+                key = f"{codec}/{scheme}"
+                shutil.rmtree(ckdir, ignore_errors=True)
+                mgr = CheckpointManager(ckdir, keep=1, codec=codec, wavelet_scheme=scheme,
+                                        device=dev)
+                rec = {}
+                c0 = K.launches.snapshot()
+                with StageTimer(dev) as save_t:
+                    _, rec["save_ms"] = _timed(lambda: mgr.save(1, tree), dev)
+                c1 = K.launches.snapshot()
+                with StageTimer(dev) as rest_t:
+                    (_, out), rec["restore_ms"] = _timed(lambda: mgr.restore(template=tree), dev)
+                c2 = K.launches.snapshot()
+                rec.update(leaves=len(T.leaves(tree)), params=n_params,
+                           save_stages=save_t.with_rest(rec["save_ms"]), save_events=save_t.event_ms,
+                           restore_stages=rest_t.with_rest(rec["restore_ms"]),
+                           restore_events=rest_t.event_ms,
+                           launches_save=_diff(c1, c0), launches_restore=_diff(c2, c1),
+                           report=mgr.compression_report(1))
+                man = json.loads((ckdir / "step_0000000001" / "manifest.json").read_text())["leaves"]
+                if codec in ("raw", "z"):
+                    got = dict(T.leaf_paths(out))
+                    for name, x in T.leaf_paths(tree):
+                        if not torch.equal(got[name], x):
+                            raise AssertionError(f"{key} restore of {name} is not bit-exact")
+                else:
+                    errs = _restore_error(tree, out, man)
+                    rec["worst"] = max(errs.items(), key=lambda kv: kv[1][0] / kv[1][1])
+                    plans[key] = {}
+                    for name, x in T.leaf_paths(tree):
+                        route, lv, _ = wz_leaf_plan(codec, scheme, tuple(x.shape),
+                                                    mgr.wavelet_levels)
+                        if (lv, route) != (man[name]["meta"]["levels"],
+                                           man[name]["meta"].get("enc", "1d")):
+                            raise AssertionError(f"{key} {name}: plan {route}/{lv} != manifest")
+                        plans[key][name] = (route, lv, leaf_plans(route, x.shape, lv, scheme, dev))
+                if codec == "wz-rice":  # one band of one leaf damaged: healed, warned
+                    f = ckdir / "step_0000000001" / man["head/w_out"]["file"]
+                    data = f.read_bytes()
+                    _damage_one_band(f)
+                    with warnings.catch_warnings(record=True) as caught:
+                        warnings.simplefilter("always")
+                        _, healed = mgr.restore(template=tree)
+                    if not any(issubclass(w.category, DegradedRestoreWarning) for w in caught):
+                        raise AssertionError("damaged wz-rice leaf restored without a warning")
+                    if not torch.equal(healed["head"]["w_out"], out["head"]["w_out"]):
+                        raise AssertionError("healed wz-rice leaf != the undamaged decode")
+                    rec["healed"] = "head/w_out"
+                    f.write_bytes(data)
+                    del healed
+                    # the card's share of a save and a restore, by kernel
+                    rec["device_ms_save"] = device_ms_by_kernel(lambda: mgr.save(1, tree))
+                    rec["device_ms_restore"] = device_ms_by_kernel(
+                        lambda: mgr.restore(1, template=tree))
+                if codec == "z":  # the first leaf a restore reads, damaged: refused
+                    first = next(iter(man))
+                    f = ckdir / "step_0000000001" / man[first]["file"]
+                    data = f.read_bytes()
+                    f.write_bytes(data[:7] + bytes([data[7] ^ 0xFF]) + data[8:])
+                    try:
+                        mgr.restore(template=tree)
+                    except CheckpointIntegrityError:
+                        rec["refused"] = first
+                    else:
+                        raise AssertionError("damaged z leaf restored without an error")
+                    f.write_bytes(data)
+                c3 = K.launches.snapshot()
+                with guard.paused():  # the plain versions, on purpose
+                    if codec.startswith("wz"):
+                        rec["plain_bytes_equal"] = _plain_bytes_check(
+                            tree, out, man, ckdir, codec, scheme, mgr.wavelet_levels, host32,
+                            quant_cache, dev)
+                del out
+                if K.launches.snapshot() != c3:
+                    raise AssertionError(f"{key}: the plain comparison launched a kernel")
+                per_codec[key] = rec
+                print(f"  ckpt {key}: save {rec['save_ms']:.1f} ms, restore "
+                      f"{rec['restore_ms']:.1f} ms; {rec['report']['stored_bytes']} of "
+                      f"{rec['report']['raw_bytes']} bytes stored; launches save "
+                      f"{rec['launches_save']}, restore {rec['launches_restore']} ({card})",
+                      flush=True)
+            with guard.paused():
+                per_codec["division"] = division_finding(tree, host32, dev)
+            # resume: a crash at step 13 of 20, saves every 5 (async, z),
+            # resumed from step 10, equal to an uninterrupted run
+            res, ms = _timed(lambda: resume_check(root / "resume", dev), dev)
+            per_codec["resume"] = dict(res, ms=ms)
+            # gradient accounting over the same tree, spatial codecs off and on
+            acct = per_codec["grad_accounting"] = {}
+            for label, cfg in (("spatial off", G.WaveletSyncConfig()),
+                               ("spatial_2d + spatial_3d", G.WaveletSyncConfig(
+                                   spatial_2d=True, spatial_3d=True))):
+                (enc, ms) = _timed(lambda: G.pod_encoded_bytes(tree, cfg), dev)
+                acct[label] = {"collective_bytes": G.pod_collective_bytes(tree, cfg),
+                               "encoded_bytes": enc, "encoded_ms": ms,
+                               "routes": dict(collections.Counter(
+                                   G.leaf_route(x, cfg) for x in T.leaves(tree)))}
+        counts = K.launches.snapshot()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want = set()
+    for key, leaves in plans.items():
+        for name, (route, lv, pl) in leaves.items():
+            for p in pl:
+                want.update(f"{PLAN_KERNELS[(route, p)]}_{d}" for d in ("fwd", "inv"))
+    want.update(("rice_encode", "rice_decode"))
+    require_launched("checkpoint path", counts, want, guard.calls)
+    return {"params": n_params, "made_s": made_s, "codecs": per_codec, "launches": counts,
+            "plans": plans, "plain_calls_on_cuda": guard.calls}
+
+
+def _plain_bytes_check(tree, out, man, ckdir, codec, scheme, levels, host32, cache,
+                       dev) -> int:
+    """Every leaf of a wavelet checkpoint: the quantized int32 on the card
+    equals the host numpy rule (``torch.equal``), the file's payload
+    (zlib'd int16 band pack, or the container) equals the plain versions'
+    chain on the card (``==``), and the restored leaf ``out`` equals that
+    int32 times the scale (float32, numpy's rule) cast to the leaf's
+    dtype (``torch.equal``: the integer DWT is lossless, so a restore
+    has one right answer).  Returns the leaves checked."""
+    from repro_torch import tree as T
+    from repro_torch.ckpt import checkpoint as CK
+
+    restored = dict(T.leaf_paths(out))
+    for name, x in T.leaf_paths(tree):
+        route, lv, lim = wz_leaf_plan(codec, scheme, tuple(x.shape), levels)
+        q, scale = CK._quantize_for_wz(x, lim)
+        if (name, lim) not in cache:
+            if name not in host32:
+                host32[name] = x.float().cpu().numpy()
+            cache[(name, lim)] = numpy_quantize(host32[name], lim)
+        q_np, scale_np = cache[(name, lim)]
+        if scale != scale_np or scale != man[name]["meta"]["scale"]:
+            raise AssertionError(f"{codec}/{scheme} {name}: scale {scale} != {scale_np}")
+        if not torch.equal(q, torch.from_numpy(q_np).to(dev)):
+            raise AssertionError(f"{codec}/{scheme} {name}: quantized int32 != the numpy rule")
+        stored = (ckdir / "step_0000000001" / man[name]["file"]).read_bytes()
+        payload = stored if codec == "wz-rice" else zlib.decompress(stored)
+        if payload != plain_chain(route, lv, q, scheme, codec):
+            raise AssertionError(f"{codec}/{scheme} {name}: payload != the plain versions' chain")
+        del q
+        want = torch.from_numpy(q_np.astype(np.float32) * scale).to(x.dtype).to(dev)
+        if not torch.equal(restored[name], want):
+            raise AssertionError(f"{codec}/{scheme} {name}: restore != the dequantized numpy rule")
+        del want
+    return len(man)
+
+
+def device_ms_by_kernel(fn) -> dict:
+    """Device ms of every kernel ``fn`` runs, summed by name (one
+    ``torch.profiler`` trace; PyTorch's own kernels under "torch ops")."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.events():
+        if not str(ev.device_type).endswith("CUDA"):
+            continue
+        name = ev.name.removeprefix("void ")
+        if name.startswith(("Memcpy", "Memset")):
+            key = name.split(" (")[0]
+        elif "at::" in name or "cub::" in name:
+            key = "torch ops"
+        else:
+            key = name.split("(")[0][:48]
+        out[key] = out.get(key, 0.0) + ev.time_range.elapsed_us() / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+# the quantization limits the checkpoint codecs use at 2 levels: wz3d's
+# 3-D leaves, wz2d's matrices, wz's lines, wz-rice
+DIVISION_LIMITS = (255.0, 1023.0, 4095.0, 32767.0)
+
+
+def division_finding(tree, host32, dev) -> dict:
+    """How a CUDA divide by a Python float rounds (PyTorch multiplies by
+    the reciprocal) against the numpy rule the port keeps (a 0-dim CUDA
+    tensor divisor): at each limit, the values of the embedding's
+    quantization where either form differs from the rule."""
+    from repro_torch.core.compression import divide_f32
+
+    x = tree["embed"]["embedding"].float()
+    if "embed/embedding" not in host32:
+        host32["embed/embedding"] = x.cpu().numpy()
+    out = {"values": x.numel()}
+    for lim in DIVISION_LIMITS:
+        q_np, scale = numpy_quantize(host32["embed/embedding"], lim)
+        want = torch.from_numpy(q_np).to(dev)
+        recip = torch.clamp(torch.round(x / scale), -lim, lim).to(torch.int32)
+        exact = torch.clamp(torch.round(divide_f32(x, scale)), -lim, lim).to(torch.int32)
+        out[int(lim)] = (int((recip != want).sum()), int((exact != want).sum()))
+        del want, recip, exact
+    return out
+
+
+def resume_check(path: pathlib.Path, dev) -> dict:
+    """``TrainLoopRunner`` on the card: crash at step 13 of 20 (saves every
+    5 steps, async, codec z), resume from the latest step, end equal to an
+    uninterrupted run."""
+    from repro_torch.ckpt import CheckpointManager, TrainLoopRunner
+
+    def step_fn(state, batch):
+        return {"x": state["x"] + batch["v"], "w": state["w"] * 0.5 + batch["v"][0]}, {}
+
+    def batch_fn(step):
+        return {"v": torch.full((3,), float(step), device=dev)}
+
+    state0 = {"x": torch.zeros(3, device=dev), "w": torch.ones(64, 64, device=dev)}
+    ref = state0
+    for s in range(20):
+        ref, _ = step_fn(ref, batch_fn(s))
+    runner = TrainLoopRunner(ckpt=CheckpointManager(path, keep=3, codec="z", device=dev),
+                             save_every=5, async_save=True)
+    try:
+        runner.run(state0, step_fn, batch_fn, n_steps=20, fail_at=13)
+    except RuntimeError as e:
+        if "simulated node failure" not in str(e):
+            raise
+    else:
+        raise AssertionError("the train loop did not fail at step 13")
+    runner.ckpt.wait()
+    runner2 = TrainLoopRunner(ckpt=CheckpointManager(path, keep=3, codec="z", device=dev),
+                              save_every=5, async_save=True)
+    state, start = runner2.resume_or_init(state0)
+    final, end = runner2.run(state, step_fn, batch_fn, n_steps=20, start_step=start)
+    if start != 10 or end != 20 or not all(torch.equal(final[k], ref[k]) for k in ref):
+        raise AssertionError(f"resume from {start} to {end} differs from the uninterrupted run")
+    return {"resumed_from": start, "ended_at": end}
+
+
+def _fmt_stages(ms: dict, ev: dict) -> str:
+    return ", ".join(f"{k} {v:.1f}" + (f" (events {ev[k]:.1f})" if k in DEVICE_STAGES else "")
+                     for k, v in ms.items())
+
+
+# the stages whose work runs on the card alone (their CUDA-event ms are
+# printed too; a stage with host work reads the host's time on events)
+DEVICE_STAGES = ("quantize", "transform", "dequantize")
+
+
+def print_checkpoint(ck: dict, card: str, secs: float) -> None:
+    codecs = ck["codecs"]
+    print(f"checkpoint path: stablelm-2-1.6b at full width, {CKPT_LAYERS} of 24 layers, "
+          f"{ck['params']} bfloat16 parameters (made in {ck['made_s']:.1f} s); every codec saved "
+          f"and restored on the card: raw and z bit-exact, wz* within 0.51 x scale + one bfloat16 "
+          f"rounding and equal to the numpy rule's int32 x scale, payload bytes equal to the plain "
+          f"versions' chain; damaged wz-rice leaf "
+          f"{codecs['wz-rice/cdf53']['healed']} healed with DegradedRestoreWarning; damaged z leaf "
+          f"{codecs['z/cdf53']['refused']} refused; train loop resumed from step "
+          f"{codecs['resume']['resumed_from']} to {codecs['resume']['ended_at']} equal to an "
+          f"uninterrupted run ({secs:.1f} s)", flush=True)
+    for codec, scheme in CKPT_CODECS:
+        r = codecs[f"{codec}/{scheme}"]
+        rep = r["report"]
+        worst = (f"; worst leaf {r['worst'][0]} max |err| {r['worst'][1][0]:.3g} of bound "
+                 f"{r['worst'][1][1]:.3g}" if "worst" in r else "")
+        print(f"  {codec}/{scheme}: {r['leaves']} leaves, {r['params']} parameters, "
+              f"{rep['raw_bytes']} raw bytes, {rep['stored_bytes']} stored (ratio "
+              f"{rep['ratio']:.4f}){worst}")
+        for what in ("save", "restore"):
+            if f"device_ms_{what}" in r:
+                print(f"    device ms of a {what} by kernel (profiler): " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in r[f"device_ms_{what}"].items()))
+        print(f"    save {r['save_ms']:.1f} ms host: {_fmt_stages(r['save_stages'], r['save_events'])}"
+              f"; launches {r['launches_save']}")
+        print(f"    restore {r['restore_ms']:.1f} ms host: "
+              f"{_fmt_stages(r['restore_stages'], r['restore_events'])}; launches "
+              f"{r['launches_restore']} ({card})")
+    for key, leaves in ck["plans"].items():
+        groups = {}
+        for name, (route, lv, pl) in leaves.items():
+            groups.setdefault(f"{route} x {lv}: {pl}", []).append(name)
+        print(f"  plans {key}: " + "; ".join(f"{g} <- {names}" for g, names in groups.items()))
+    print(f"launches on the checkpoint path: {ck['launches']}; plain versions called on CUDA "
+          f"tensors: {sum(ck['plain_calls_on_cuda'].values())}")
+    dv = codecs["division"]
+    print(f"quantization division on the card, embed/embedding ({dv['values']} values), "
+          f"values unequal to the numpy rule with x / python_float (a reciprocal multiply) / "
+          f"with the port's 0-dim tensor divisor: " + "; ".join(
+              f"limit {lim} {dv[lim][0]} / {dv[lim][1]}" for lim in map(int, DIVISION_LIMITS)))
+    for label, a in codecs["grad_accounting"].items():
+        raw, comp = a["collective_bytes"]
+        print(f"gradient sync accounting ({label}): routes {a['routes']}; fp32 {raw} bytes, "
+              f"band payload {comp} (analytic), Rice-coded {a['encoded_bytes'][1]} (measured, "
+              f"{a['encoded_ms']:.1f} ms host; {card})")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2317,8 +2944,14 @@ def main() -> int:
                   f"(device {_fmt_ms(lv['device_ms'])} ms, host {lv['host_us']:.1f} us a call, "
                   f"cluster {lv['cluster']}; plain {lv['plain_ms']:.3f} ms, bound "
                   f"{lv['bound_ms']:.4f} ms)")
+    t = time.perf_counter()
+    ck = checkpoint_path(rng, dev, card)
+    print_checkpoint(ck, card, time.perf_counter() - t)
+    for k in kernels + kernels_1d + kernels_3d:
+        k["launches_ckpt"] = ck["launches"].get(k["name"], 0)
     if args.json_out:
         record = {"card": card, "torch": torch.__version__, "seed": args.seed,
+                  "checkpoint": ck,
                   "parity_cases": checks, "serve": srv, "serve_encoded": enc,
                   "path_1d": lib, "kernels_1d_shapes": shapes_1d, "path_3d": vp,
                   "kernels_3d_levels": levels_3d, "whole2d_chains": chains_2d,

@@ -1,8 +1,9 @@
 """Deterministic fault-injection harness for chaos testing.
 
 Copied from ``repro.resilience.inject`` so the port imports nothing of
-the reference package.  The port wires only ``serve.transform`` so far;
-the other site names are kept so the two harnesses stay one taxonomy.
+the reference package.  The port wires ``serve.transform`` and the
+``ckpt.save.*`` sites so far; the other site names are kept so the two
+harnesses stay one taxonomy.
 
 Two halves, both seeded and replayable:
 

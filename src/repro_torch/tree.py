@@ -1,0 +1,86 @@
+"""Nested containers of tensors: leaf names, leaf order, rebuilding.
+
+The port's stand-in for the part of ``jax.tree_util`` the reference's
+checkpoint and gradient modules use.  A tree is nested dicts, lists,
+tuples and named tuples; ``None`` holds no leaf; anything else is a
+leaf.  The walk is ``jax.tree_util.tree_flatten_with_path``'s: dict keys
+sorted (an ``OrderedDict`` keeps its order), sequences by index, named
+tuples by field name, so :func:`leaf_paths` gives the reference's
+``/``-joined leaf names in the reference's order.
+"""
+from __future__ import annotations
+
+import collections
+from typing import Any, Callable, Iterator, List, Sequence, Tuple
+
+PyTree = Any
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _keys(node: dict) -> list:
+    return list(node) if isinstance(node, collections.OrderedDict) else sorted(node)
+
+
+def _children(node) -> List[Tuple[str, Any]]:
+    """(key, child) pairs of a container node in walk order."""
+    if isinstance(node, dict):
+        return [(str(k), node[k]) for k in _keys(node)]
+    if _is_namedtuple(node):
+        return [(f, getattr(node, f)) for f in node._fields]
+    return [(str(i), c) for i, c in enumerate(node)]
+
+
+def _is_node(x) -> bool:
+    return isinstance(x, (dict, list, tuple))
+
+
+def _walk(node, path: Tuple[str, ...]) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    if node is None:
+        return
+    if _is_node(node):
+        for key, child in _children(node):
+            yield from _walk(child, path + (key,))
+    else:
+        yield path, node
+
+
+def leaf_paths(tree: PyTree) -> List[Tuple[str, Any]]:
+    """(name, leaf) pairs: names ``/``-joined key paths, in walk order."""
+    return [("/".join(path), leaf) for path, leaf in _walk(tree, ())]
+
+
+def leaves(tree: PyTree) -> List[Any]:
+    return [leaf for _, leaf in _walk(tree, ())]
+
+
+def _rebuild(node, it: Iterator[Any]):
+    if node is None:
+        return None
+    if not _is_node(node):
+        return next(it)
+    if isinstance(node, dict):  # filled in walk order, keyed in the node's order
+        done = {k: _rebuild(node[k], it) for k in _keys(node)}
+        out = {k: done[k] for k in node}
+        return collections.OrderedDict(out) if isinstance(node, collections.OrderedDict) else out
+    items = [_rebuild(c, it) for _, c in _children(node)]
+    if _is_namedtuple(node):
+        return type(node)(*items)
+    return type(node)(items)
+
+
+def unflatten(template: PyTree, values: Sequence[Any]) -> PyTree:
+    """``template``'s structure with its leaves replaced, in walk order,
+    by ``values``."""
+    it = iter(values)
+    out = _rebuild(template, it)
+    if next(it, it) is not it:
+        raise ValueError("more values than the template has leaves")
+    return out
+
+
+def map_leaves(fn: Callable[[Any], Any], tree: PyTree) -> PyTree:
+    """``tree``'s structure with ``fn`` applied to every leaf."""
+    return unflatten(tree, [fn(leaf) for leaf in leaves(tree)])

@@ -776,3 +776,111 @@ def test_cuda_3d_library_serve_and_codec_paths(cuda_device):
         row = TCODEC.decode_batch(r.encoded, device=cuda_device)[r.batch_index]
         xr = crop_result(TK.dwt_inv_nd(row), r)
         assert torch.equal(xr, torch.from_numpy(r.image).to(cuda_device))
+
+
+# ---------------------------------------------------------------------------
+# The tensor-codec math and the checkpoint codecs on the card.
+# ---------------------------------------------------------------------------
+
+
+def _numpy_wz_rule(arr32, lim):
+    """The reference checkpoint's host quantization rule."""
+    scale = max(float(np.max(np.abs(arr32)) or 1.0) / lim, 1e-12)
+    return np.clip(np.round(arr32 / scale), -lim, lim).astype(np.int32), scale
+
+
+@pytest.mark.cuda
+def test_cuda_quantization_equals_the_numpy_rule_and_the_cpu(cuda_device):
+    from repro_torch.ckpt import checkpoint as TCK
+    from repro_torch.core import compression as TCM
+
+    rng = np.random.default_rng(23)
+    for s in (0.02, 3.0):
+        x = (rng.standard_normal((1 << 20,)) * s).astype(np.float32)
+        xc = torch.from_numpy(x).to(cuda_device)
+        for lim in (255.0, 4095.0, 32767.0):
+            q, scale = TCK._quantize_for_wz(xc, lim)
+            q_np, scale_np = _numpy_wz_rule(x, lim)
+            assert scale == scale_np
+            assert torch.equal(q.cpu(), torch.from_numpy(q_np))
+        ts = TCM.tensor_scale(xc)
+        assert torch.equal(ts.cpu(), TCM.tensor_scale(torch.from_numpy(x)))
+        assert torch.equal(TCM.quantize(xc, ts).cpu(), TCM.quantize(torch.from_numpy(x), ts.cpu()))
+    # the band shift's exact rule, on the card as on the CPU
+    amax = np.array([v for k in range(31) for c in (127 * 2**k, 32767 * 2**k)
+                     for v in range(c - 40, c + 41) if 0 <= v < 2**31], np.int64)
+    for limit in (127, 32767):
+        for a in amax[:: 7]:
+            band = torch.tensor([int(a), -int(a) // 3], dtype=torch.int32)
+            assert int(TCM._band_shift(band.to(cuda_device), limit)) == int(
+                TCM._band_shift(band, limit))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["raw", "z", "wz", "wz2d", "wz3d", "wz-rice"])
+def test_cuda_checkpoint_leaf_bytes_equal_their_cpu_copies(codec, cuda_device, tmp_path):
+    import json
+
+    from repro_torch import tree as TTREE
+    from repro_torch.ckpt import CheckpointManager
+
+    rng = np.random.default_rng(29)
+    cpu = {
+        "vec": torch.from_numpy(rng.standard_normal(300).astype(np.float32)),
+        "mat": torch.from_numpy(rng.standard_normal((96, 130)).astype(np.float32)),
+        "stack": torch.from_numpy((rng.standard_normal((3, 8, 40, 64)) * 0.02).astype(
+            np.float32)).to(torch.bfloat16),
+        "s": torch.tensor(2.5),
+    }
+    card = TTREE.map_leaves(lambda t: t.to(cuda_device), cpu)
+    for scheme in ("cdf53", "cdf22"):
+        outs = {}
+        for where, tree in (("cpu", cpu), ("card", card)):
+            d = tmp_path / f"{where}_{scheme}"
+            mgr = CheckpointManager(d, codec=codec, wavelet_scheme=scheme, device=cuda_device)
+            mgr.save(1, tree)
+            step = d / "step_0000000001"
+            man = json.loads((step / "manifest.json").read_text())
+            outs[where] = (man, {n: (step / m["file"]).read_bytes()
+                                 for n, m in man["leaves"].items()}, mgr.restore(template=tree)[1])
+        assert outs["card"][0] == outs["cpu"][0]
+        assert outs["card"][1] == outs["cpu"][1]
+        for a, b in zip(TTREE.leaves(outs["card"][2]), TTREE.leaves(outs["cpu"][2])):
+            assert a.is_cuda and torch.equal(a, b)
+        cpu_mgr = CheckpointManager(tmp_path / f"card_{scheme}", device="cpu")
+        for a, b in zip(TTREE.leaves(cpu_mgr.restore(template=cpu)[1]),
+                        TTREE.leaves(outs["card"][2])):
+            assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["raw", "wz-rice"])
+def test_cuda_async_save_from_a_side_stream_writes_the_tree_as_it_was(codec, cuda_device, tmp_path):
+    """The snapshot's clones wait behind a long kernel on the caller's side
+    stream, the tree is changed in place there right after ``save``: the
+    save thread still reads the clones only once they are written."""
+    from repro_torch.ckpt import CheckpointManager
+
+    rng = np.random.default_rng(31)
+    side = torch.cuda.Stream(cuda_device)
+    mgr = CheckpointManager(tmp_path / "async", codec=codec, device=cuda_device)
+    with torch.cuda.stream(side):
+        tree = {"w": torch.from_numpy(rng.standard_normal((1 << 22,)).astype(np.float32)).to(
+                    cuda_device).reshape(512, 8192),
+                "b": torch.ones(64, device=cuda_device)}
+        want = {k: v.clone() for k, v in tree.items()}
+        torch.cuda._sleep(1 << 30)  # about half a second of the card
+        mgr.save(1, tree, blocking=False)
+        tree["w"].add_(1.0)
+        tree["b"].mul_(3.0)
+    mgr.wait()
+    torch.cuda.synchronize(cuda_device)
+    ref = CheckpointManager(tmp_path / "ref", codec=codec, device=cuda_device)
+    ref.save(1, want)
+    for name in ("w", "b"):
+        assert ((tmp_path / "async" / "step_0000000001" / f"{name}.bin").read_bytes()
+                == (tmp_path / "ref" / "step_0000000001" / f"{name}.bin").read_bytes())
+    got, exp = mgr.restore(template=want)[1], ref.restore(template=want)[1]
+    assert all(torch.equal(got[k], exp[k]) for k in want)
+    if codec == "raw":
+        assert all(torch.equal(got[k], want[k]) for k in want)

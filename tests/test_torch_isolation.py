@@ -36,7 +36,10 @@ def test_the_scan_sees_every_port_module():
                  "src/repro_torch/kernels/fused2d.py", "src/repro_torch/serve/engine.py",
                  "src/repro_torch/codec/rice.py", "src/repro_torch/core/ranges.py",
                  "src/repro_torch/kernels/ops.py", "src/repro_torch/kernels/dwt53.py",
-                 "src/repro_torch/configs/dwt53.py", "src/repro_torch/kernels/fused3d.py"):
+                 "src/repro_torch/configs/dwt53.py", "src/repro_torch/kernels/fused3d.py",
+                 "src/repro_torch/core/compression.py", "src/repro_torch/ckpt/checkpoint.py",
+                 "src/repro_torch/ckpt/ft.py", "src/repro_torch/train/grad_compress.py",
+                 "src/repro_torch/tree.py"):
         assert must in names
 
 
@@ -49,7 +52,8 @@ def test_no_port_file_imports_jax_or_repro(path):
 def test_fresh_interpreter_imports_the_port_without_jax():
     code = (
         "import sys; import repro_torch.serve, repro_torch.kernels, repro_torch.codec, "
-        "repro_torch.core.ranges, repro_torch.configs.dwt53; "
+        "repro_torch.core.ranges, repro_torch.configs.dwt53, repro_torch.core.compression, "
+        "repro_torch.ckpt, repro_torch.train.grad_compress; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'));"
         "print(bad); sys.exit(1 if bad else 0)"
     )
