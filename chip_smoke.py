@@ -163,9 +163,29 @@ Phases (any failure raises and the script exits nonzero):
    values that rule's int32 times the scale in float32, cast to the
    leaf's dtype (``torch.equal``: the integer transform is lossless); and
    a CUDA divide by a Python float is counted against that rule.
-11. Print the ``{"kernels": [...]}`` line (each kernel with its launches
-   on the checkpoint path too), the card line, and last the
-   ``{"ok": true, ...}`` line.  ``--json-out PATH`` also writes the whole
+11. The paper's evaluation: the float (5,3) filter-bank kernel
+   (``csrc/filterbank.cu``, the card's counterpart of the reference's
+   jitted float baseline) against its plain version with ``torch.equal``
+   (n in {3, 4, 5, 64, 255, 256, 65,536}, rows in {1, 7, 1024}, 8-bit
+   values and int32 extremes, tensors 4 bytes past a 16-byte boundary,
+   the wrapper on every accepted dtype); then, with the counters reset
+   just before and read just after and the plain-version guard (1-D,
+   2-D and the float filter bank's plain versions), the port's paper
+   benchmarks: Table 2 (``benchmarks/torch_table2_opcounts.py``: make_fx
+   traces and the PE model's ledger; every scheme 0 multipliers, the
+   lifting pair 4 / 2 / 0, each scheme's row its ``pair_op_counts()``),
+   Fig. 5 (``torch_fig5_lossless.py``: every ``lossless*`` row 1 through
+   the ``lift1d`` kernel and the row pass, ``max_abs_error`` 0) and
+   Table 3 (``torch_table3_timing.py``: the lifting kernel, the float
+   kernel, the plain float chain and one ``conv1d`` call at 1 x 256, (a)
+   64 x 65,536 and (b) 1024 x 65,536, each by events, device and host
+   time beside its byte bound; the plain chain and ``conv1d`` are
+   comparisons, the guard paused there).  The float, lifting and row-pass
+   kernels must have launched, no plain version on a CUDA tensor.
+12. Print the ``{"kernels": [...]}`` line (each kernel with its launches
+   on the checkpoint path too; the float kernel's from phase 11, its
+   times at (a)), the card line, and last the ``{"ok": true, ...}``
+   line.  ``--json-out PATH`` also writes the whole
    record (every batch latency, every level's, band's and shape's time)
    to PATH.
 """
@@ -175,12 +195,10 @@ import argparse
 import collections
 import contextlib
 import dataclasses
-import functools
 import json
 import pathlib
 import shutil
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -193,10 +211,22 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM published peak HBM3 bytes/s (NVIDIA data sheet); the integer
-# rate every kernel's op bound uses is the card's own (int32_ops_per_s)
-PEAK_BYTES_PER_S = 3.35e12
-INT32_LANES_PER_SM = 64  # Hopper: 16 INT32 lanes in each of an SM's 4 partitions
+# the timing helpers (also the anatomy tools' and the paper benchmarks');
+# the HBM rate and the card's INT32 rate price every kernel's bound
+from repro_torch.timing import (  # noqa: E402  (the checkout's src is on the path now)
+    INT32_LANES_PER_SM,
+    PEAK_BYTES_PER_S,
+    PEAK_FP32_FLOPS,
+    bound,
+    card_line,
+    int32_ops_per_s,
+)
+from repro_torch.timing import device_ms as _device_ms  # noqa: E402
+from repro_torch.timing import fmt_ms as _fmt_ms  # noqa: E402
+from repro_torch.timing import host_us as _host_us  # noqa: E402
+from repro_torch.timing import median_ms as _median_ms  # noqa: E402
+from repro_torch.timing import pass_ms as _pass_ms  # noqa: E402
+from repro_torch.timing import smi as _smi  # noqa: E402
 
 SCHEMES = ("cdf53", "haar", "cdf22", "97m")
 MODES = ("paper", "jpeg2000")
@@ -231,34 +261,6 @@ KERNELS_1D = {
 RICE_OPS = 10
 
 
-def _smi(query: str) -> str:
-    out = subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader", "-i", "0"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    return out.splitlines()[0]
-
-
-def card_line() -> str:
-    return _smi("name,power.limit")
-
-
-@functools.lru_cache(maxsize=1)
-def int32_ops_per_s() -> float:
-    """The card's INT32 rate: SMs x 64 INT32 lanes x the SM clock's
-    maximum, as ``nvidia-smi`` reads it (1.98 GHz on an H100 SXM)."""
-    mhz = float(_smi("clocks.max.sm").split()[0])
-    return torch.cuda.get_device_properties(0).multi_processor_count * INT32_LANES_PER_SM * mhz * 1e6
-
-
-def bound(nbytes: float, ops: float):
-    """(bound ms, what bounds it): the bytes at the HBM rate or the
-    integer operations at the card's INT32 rate, whichever takes longer."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / int32_ops_per_s() * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
 def _equal_or_raise(label, got, want) -> int:
     """Raise unless every pair is bit-equal; returns the max |got - want|."""
     err = 0
@@ -266,7 +268,8 @@ def _equal_or_raise(label, got, want) -> int:
         if g.shape != w.shape:
             raise AssertionError(f"{label}: shape {tuple(g.shape)} != {tuple(w.shape)}")
         if g.numel():
-            err = max(err, int((g.long() - w.long()).abs().max()))
+            diff = (g.double() - w.double()) if g.is_floating_point() else (g.long() - w.long())
+            err = max(err, diff.abs().max().item())
         if not torch.equal(g, w):
             raise AssertionError(f"{label}: kernel != plain version (max |err| {err})")
     return err
@@ -837,20 +840,6 @@ def serve_encoded(rng, dev, n_requests) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 9: kernel times at the serve path's shapes.
 # ---------------------------------------------------------------------------
-
-
-def _median_ms(fn, reps: int) -> float:
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def time_kernels(rng, dev) -> list:
@@ -2002,71 +1991,6 @@ def stream_decode_check(data, dev) -> int:
     return n
 
 
-def _pass_ms(fn, reps: int = 5, per_call: int | None = None, warm: int = 3,
-             tries: int = 3) -> dict:
-    """Device ms of each kernel ``fn`` launches, per call, by kernel name
-    (``torch.profiler``).  The profiler on the card loses kernel records
-    now and then (two a profile, every time, late in this script's run),
-    so a total divided by the calls made under-counts.  One profile holds
-    ``warm + reps`` identical calls and is read from its last ``reps *
-    per_call`` kernel records by start time (``per_call``: the launches
-    one call makes, from the caller, else from the count); a profile with
-    fewer records is taken again, up to ``tries`` times, and then the
-    result is ``{"not measured": ...}``, never a short total."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    seen = []
-    for _ in range(tries):
-        try:
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(warm + reps):
-                    fn()
-                torch.cuda.synchronize()
-        except RuntimeError as e:  # a profiler that cannot trace the card: the event medians stand
-            return {"profiler unavailable": str(e)[:200]}
-        recs = sorted((ev.time_range.start, ev.name, ev.time_range.elapsed_us())
-                      for ev in prof.events()
-                      if str(ev.device_type).endswith("CUDA")
-                      and ("kernel" in ev.name or "passes::" in ev.name))
-        seen.append(len(recs))
-        calls = per_call if per_call is not None else max(1, round(len(recs) / (warm + reps)))
-        if len(recs) >= reps * calls:
-            out = {}
-            for _, name, us in recs[len(recs) - reps * calls:]:
-                key = name.split("(")[0][:80]
-                out[key] = out.get(key, 0.0) + us / 1e3 / reps
-            return out
-    return {"not measured": f"kernel records seen {seen} of {warm + reps} calls, "
-                            f"want {reps} x {per_call or 'the launches a call makes'}"}
-
-
-def _device_ms(fn, per_call: int) -> float | None:
-    """Device ms per call of all the kernels ``fn`` launches (``per_call``
-    launches a call), None where the profiler gave too few records."""
-    ms = _pass_ms(fn, per_call=per_call)
-    return sum(ms.values()) if all(isinstance(v, float) for v in ms.values()) else None
-
-
-def _fmt_ms(v) -> str:
-    return f"{v:.4f}" if isinstance(v, float) else "not measured" if v is None else str(v)
-
-
-def _host_us(fn, dev, calls: int = 200) -> float:
-    """Host microseconds per call of ``fn``: calls enqueued back to back,
-    then one sync (the card idles behind the host at a small level)."""
-    for _ in range(20):
-        fn()
-    torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    us = (time.perf_counter() - t0) / calls * 1e6
-    torch.cuda.synchronize(dev)
-    return us
-
-
 # the whole-volume kernel's levels beside the volume's level 4: the
 # (16, 256, 256) bucket's levels 3-4, level 3 of a WZRS depth slab of 8,
 # and cdf22's level 3, which a cluster now holds
@@ -2766,6 +2690,152 @@ def print_checkpoint(ck: dict, card: str, secs: float) -> None:
               f"{a['encoded_ms']:.1f} ms host; {card})")
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the paper's evaluation (Table 2, Fig. 5, Table 3).
+# ---------------------------------------------------------------------------
+
+# the float filter bank replaces no Pallas kernel: it is the card's
+# counterpart of the reference's jitted jnp baseline (Table 3)
+FILTERBANK = ("src/repro_torch/csrc/filterbank.cu", "src/repro/core/lifting.py:763")
+FILTERBANK_LENGTHS = (3, 4, 5, 64, 255, 256, 65536)
+FILTERBANK_ROWS = (1, 7, 1024)
+
+
+def filterbank_parity(rng, dev) -> dict:
+    """Phase 11, parity: the float filter-bank kernel against its plain
+    version with ``torch.equal``: n in ``FILTERBANK_LENGTHS``, rows in
+    ``FILTERBANK_ROWS``, 8-bit values and int32 extremes (every third
+    sample the minimum, the next the maximum, the rest random over the
+    whole range), each also 4 bytes past a 16-byte boundary; then the
+    wrapper on (2, 3, 257) inputs of every accepted dtype."""
+    from repro_torch import kernels as K
+    from repro_torch.core import lifting as L
+    from repro_torch.kernels import filterbank as FB
+
+    cases, err = 0, 0.0
+    for n in FILTERBANK_LENGTHS:
+        for rows in FILTERBANK_ROWS:
+            for kind in ("8-bit", "int32 extremes"):
+                if kind == "8-bit":
+                    x = rng.integers(0, 256, (rows, n), dtype=np.int32)
+                else:
+                    x = rng.integers(I32.min, I32.max, (rows, n), dtype=np.int32, endpoint=True)
+                    x[:, ::3], x[:, 1::3] = I32.min, I32.max
+                xt = torch.from_numpy(x).to(dev)
+                want = L.filterbank53_fwd_float(xt)
+                for mis in (False, True):
+                    label = f"filterbank53_float {rows}x{n} {kind}{' misaligned' if mis else ''}"
+                    xin = _misaligned(xt) if mis else xt
+                    err = max(err, _equal_or_raise(label, FB.filterbank53_fwd_float_cuda(xin),
+                                                   want))
+                    cases += 1
+    for dt in (np.int8, np.int16, np.uint8, np.uint16, np.int32):
+        info = np.iinfo(dt)
+        xt = torch.from_numpy(rng.integers(info.min, info.max, (2, 3, 257), endpoint=True)
+                              .astype(dt)).to(dev)
+        _equal_or_raise(f"kernels.filterbank53_fwd_float {np.dtype(dt).name}",
+                        K.filterbank53_fwd_float(xt), L.filterbank53_fwd_float(xt.to(torch.int32)))
+        cases += 1
+    torch.cuda.synchronize(dev)
+    return {"cases": cases, "max_abs_err": err}
+
+
+def paper_evaluation(rng, dev) -> dict:
+    """Phase 11: the float kernel's parity sweep, then the port's paper
+    benchmarks (``benchmarks/torch_*.py``) with the counters reset just
+    before and read just after, under the plain-version guard (the 1-D
+    and 2-D plain versions and the float filter bank's; Table 3's plain
+    chain and library call are comparisons, the guard paused there).
+    Fails unless every scheme traces 0 multipliers, the lifting pair 4 /
+    2 / 0 and each scheme's row its ``pair_op_counts()``; every Fig. 5
+    ``lossless*`` row is 1 and ``max_abs_error`` 0; the float kernel
+    equals the plain chain at every Table 3 shape; and the lifting, row
+    pass and float kernels launched."""
+    from benchmarks import torch_fig5_lossless as F5
+    from benchmarks import torch_table2_opcounts as T2
+    from benchmarks import torch_table3_timing as T3
+    from repro_torch import kernels as K
+    from repro_torch.core import schemes as S
+
+    t0 = time.perf_counter()
+    parity = filterbank_parity(rng, dev)
+    targets = PlainGuard.TARGETS + PlainGuard.TARGETS_2D + (
+        ("repro_torch.core.lifting", ("filterbank53_fwd_float",)),)
+    K.launches.reset()
+    with PlainGuard(targets) as guard:
+        t2 = T2.run(device=dev.type)
+        f5 = F5.run(device=dev.type)
+        t3 = T3.run(device=dev.type, compare=guard.paused)
+    torch.cuda.synchronize(dev)
+    launches = K.launches.snapshot()
+    rows2, rows5, rows3 = ({k: v for k, v, _ in r} for r in (t2, f5, t3))
+    want = {"table2.ls.adders": 4, "table2.ls.shifters": 2, "table2.ls.multipliers": 0}
+    for name in S.available_schemes():
+        for key, v in S.get_scheme(name).pair_op_counts().items():
+            want[f"table2.scheme.{name}.{key}"] = v
+    bad = {k: (rows2.get(k), v) for k, v in want.items() if rows2.get(k) != v}
+    if bad:
+        raise AssertionError(f"Table 2 rows (got, want): {bad}")
+    bad = {k: v for k, v in rows5.items()
+           if (k.startswith("fig5.lossless") and v != 1) or (k == "fig5.max_abs_error" and v)}
+    if bad or "fig5.lossless_kernel_multilevel" not in rows5:
+        raise AssertionError(f"Fig. 5 rows: {bad or rows5}")
+    bad = {k: v for k, v in rows3.items() if k.endswith("float_kernel.max_abs_err") and v}
+    if bad:
+        raise AssertionError(f"the float kernel != the plain chain in Table 3: {bad}")
+    require_launched("paper evaluation", launches, (
+        "filterbank53_float", "lift1d_fwd", "lift1d_inv", "rows1d_fwd", "rows1d_inv"),
+        guard.calls)
+    return {"parity": parity, "table2": t2, "fig5": f5, "table3": t3, "launches": launches,
+            "plain_calls_on_cuda": dict(guard.calls), "seconds": time.perf_counter() - t0}
+
+
+def print_paper(pe: dict, card: str) -> None:
+    from benchmarks import torch_table3_timing as T3
+
+    print(f"paper evaluation: float filter-bank kernel == plain version on every case "
+          f"{pe['parity']}; launches {pe['launches']}; plain versions called on CUDA tensors: "
+          f"{sum(pe['plain_calls_on_cuda'].values())} ({pe['seconds']:.1f} s)", flush=True)
+    print("Table 2 (make_fx traces, PE ledger): " + ", ".join(
+        f"{k.removeprefix('table2.')}={v}" for k, v, _ in pe["table2"]))
+    print("Fig. 5: " + ", ".join(f"{k.removeprefix('fig5.')}={v}" for k, v, _ in pe["fig5"]))
+    rows3 = {k: (v, note) for k, v, note in pe["table3"]}
+    for key in ("table3.int_lifting_us", "table3.float_filterbank_us", "table3.speedup",
+                "table3.ordering_holds"):
+        print(f"{key} = {rows3[key][0]} ({rows3[key][1]})")
+    for shape, (r, n) in {"paper": T3.PAPER_SHAPE, **T3.SHAPES}.items():
+        for impl in T3.IMPLS:
+            m = {f: rows3[f"table3.{shape}.{impl}.{f}"][0]
+                 for f in ("ms", "device_ms", "host_us", "bound_ms")}
+            err = rows3.get(f"table3.{shape}.{impl}.max_abs_err", (0.0,))[0]
+            print(f"  table3 {shape} {r} x {n} "
+                  f"{impl}: {m['ms']:.4f} ms events, device {m['device_ms']:.4f} ms, host "
+                  f"{m['host_us']:.1f} us a call, bound {m['bound_ms']:.6f} ms, max |err| vs "
+                  f"plain {err:.3g} ({card})")
+        print(f"  table3 {shape} float kernel / lifting, device: "
+              f"{rows3[f'table3.{shape}.float_kernel_over_int_lifting'][0]}")
+
+
+
+def filterbank_entry(pe: dict) -> dict:
+    """The float kernel's entry of the ``kernels`` line, at (a) 64 x 65,536."""
+    from benchmarks import torch_table3_timing as T3
+
+    rows3 = {k: v for k, v, _ in pe["table3"]}
+    source, replaces = FILTERBANK
+    samples = T3.SHAPES["a"][0] * T3.SHAPES["a"][1]
+    return {
+        "name": "filterbank53_float", "route": "cuda", "source": source, "replaces": replaces,
+        "launches": pe["launches"]["filterbank53_float"],
+        "max_abs_err": pe["parity"]["max_abs_err"],
+        "ms": rows3["table3.a.float_kernel.ms"], "plain_ms": rows3["table3.a.float_plain.ms"],
+        "bound_ms": rows3["table3.a.float_kernel.bound_ms"],
+        "bound_by": bound(T3.BYTES_PER_SAMPLE * samples, T3.FLOPS_PER_SAMPLE * samples,
+                          ops_per_s=PEAK_FP32_FLOPS)[1],
+        "library_ms": rows3["table3.a.float_conv1d.ms"],
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2947,7 +3017,10 @@ def main() -> int:
     t = time.perf_counter()
     ck = checkpoint_path(rng, dev, card)
     print_checkpoint(ck, card, time.perf_counter() - t)
-    for k in kernels + kernels_1d + kernels_3d:
+    pe = paper_evaluation(rng, dev)
+    print_paper(pe, card)
+    kernels_paper = [filterbank_entry(pe)]
+    for k in kernels + kernels_1d + kernels_3d + kernels_paper:
         k["launches_ckpt"] = ck["launches"].get(k["name"], 0)
     if args.json_out:
         record = {"card": card, "torch": torch.__version__, "seed": args.seed,
@@ -2955,11 +3028,12 @@ def main() -> int:
                   "parity_cases": checks, "serve": srv, "serve_encoded": enc,
                   "path_1d": lib, "kernels_1d_shapes": shapes_1d, "path_3d": vp,
                   "kernels_3d_levels": levels_3d, "whole2d_chains": chains_2d,
-                  "kernels": kernels + kernels_1d + kernels_3d}
+                  "paper_evaluation": pe,
+                  "kernels": kernels + kernels_1d + kernels_3d + kernels_paper}
         out = pathlib.Path(args.json_out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(record, indent=1))
-    kernels += kernels_1d + kernels_3d
+    kernels += kernels_1d + kernels_3d + kernels_paper
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

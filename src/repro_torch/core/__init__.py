@@ -1,9 +1,11 @@
-"""Core: the paper's integer lifting-scheme DWT and its range model.
+"""Core: the paper's integer lifting-scheme DWT, its range model and its
+hardware model.
 
-Re-exports what ``repro.core`` re-exports, on torch tensors.  The one
-name left out, ``filterbank53_fwd_float`` (the float filter-bank
-comparison of the reference), is not ported yet: see ROADMAP.md Queue 1
-item 7.
+Re-exports what ``repro.core`` re-exports, on torch tensors, the float
+filter-bank baseline ``filterbank53_fwd_float`` (the plain version of
+``kernels.filterbank53_fwd_float``) among them.  The processing-element
+model (``core.pe``) and the op counter (``core.opcount``) are modules of
+their own, as in the reference.
 """
 from repro_torch.core.lifting import (  # noqa: F401
     Bands2D,
@@ -24,6 +26,7 @@ from repro_torch.core.lifting import (  # noqa: F401
     dwt_inv,
     dwt_inv_1d,
     dwt_inv_2d,
+    filterbank53_fwd_float,
     get_scheme,
     max_levels,
     pack,

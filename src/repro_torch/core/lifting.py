@@ -699,3 +699,47 @@ def unpack_nd(flat: Tensor, shape: Tuple[int, ...], levels: int) -> PyramidND:
     approx = take(a_shape)
     details = tuple(tuple(take(shp) for shp in lvl) for lvl in det_shapes)
     return PyramidND(approx=approx, details=details)
+
+
+# ---------------------------------------------------------------------------
+# Direct-form (5,3) filterbank — the baseline the paper compares against
+# (Table 2 / "standard methods require 8 operations").
+# ---------------------------------------------------------------------------
+
+# LeGall/CDF 5/3 analysis filters (float, for the Table 3 float baseline).
+H_LO = torch.tensor([-1 / 8, 2 / 8, 6 / 8, 2 / 8, -1 / 8], dtype=torch.float32)
+H_HI = torch.tensor([-1 / 2, 1.0, -1 / 2], dtype=torch.float32)
+
+
+def filterbank53_fwd_float(x: Tensor) -> Tuple[Tensor, Tensor]:
+    """Direct-form float (5,3) analysis: convolve + downsample.
+
+    This is the paper's comparison baseline (standard filterbank, 8 ops,
+    floating point).  Not integer-lossless; used only for op-count and
+    timing comparisons.  The plain version of the one-launch kernel
+    ``kernels.filterbank53_fwd_float`` (``csrc/filterbank.cu``): every
+    product and sum is rounded once, in this order, on either device.
+    Needs at least 3 samples (the extension by 2 reads ``x[..., 1:3]``).
+    """
+    xf = x.to(torch.float32)
+    n = xf.shape[-1]
+    if n < 3:
+        raise ValueError(f"the float filterbank needs at least 3 samples, got {n}")
+    # whole-point symmetric extension by 2 on both sides
+    left = xf[..., 1:3].flip(-1)
+    right = xf[..., -3:-1].flip(-1)
+    ext = torch.cat([left, xf, right], dim=-1)
+
+    def conv(sig: Tensor, taps: Tensor) -> Tensor:
+        k = taps.shape[0]
+        cols = [sig[..., i : i + n] for i in range(k)]
+        acc = cols[0] * taps[0]
+        for i in range(1, k):
+            acc = acc + cols[i] * taps[i]
+        return acc
+
+    lo = conv(ext, H_LO)  # lo[j] centered at x[j]
+    hi = conv(ext[..., 2:], H_HI)  # hi[j] centered at x[j+1]
+    s = lo[..., 0::2]
+    d = hi[..., 0::2][..., : n // 2]  # centers 1, 3, 5, ...
+    return s, d

@@ -14,9 +14,10 @@ PyTorch versions.  Every transform takes ``checked=`` (or
 dwt53.py (windowed 1-D kernels and the row-pass fallback), fused2d.py
 (whole-image kernels, 2-D level dispatch, pyramids), tiled2d.py
 (halo-tiled kernels), fused3d.py (the N-D API, whole-volume and
-depth-slab 3-D kernels, 3-D level dispatch), backend.py (dispatch policy, budgets, blocks,
-tiles, launch counters), ref.py (the torch oracle), _build.py (nvcc
-build and ctypes binding of ``csrc/``).
+depth-slab 3-D kernels, 3-D level dispatch), filterbank.py (the float
+(5,3) filter bank of the paper's Table 3, one launch), backend.py
+(dispatch policy, budgets, blocks, tiles, launch counters), ref.py (the
+torch oracle), _build.py (nvcc build and ctypes binding of ``csrc/``).
 """
 from repro_torch.core.lifting import (  # noqa: F401  structural types + packing
     Bands2D,
@@ -64,6 +65,7 @@ from repro_torch.kernels.fused2d import (  # noqa: F401
     dwt_inv_2d_multi,
     plan_2d,
 )
+from repro_torch.kernels.filterbank import filterbank53_fwd_float  # noqa: F401
 from repro_torch.kernels.fused3d import (  # noqa: F401
     dwt_fwd_nd,
     dwt_inv_nd,
@@ -119,6 +121,7 @@ __all__ = [
     "dwt_fwd_nd",
     "dwt_inv_nd",
     "plan_3d",
+    "filterbank53_fwd_float",
     "dwt53_fwd",
     "dwt53_fwd_1d",
     "dwt53_inv",

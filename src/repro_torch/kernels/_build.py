@@ -41,7 +41,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-SOURCES = ("whole2d", "tiled2d", "rice", "lift1d", "whole3d", "slab3d")
+SOURCES = ("whole2d", "tiled2d", "rice", "lift1d", "whole3d", "slab3d", "filterbank")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -77,6 +77,9 @@ _SIGNATURES = {
     "slab3d": {
         "repro_slab3d_fwd": [_I] + [_P] * 16 + [_I] * 11 + [_P, _I, _P],
         "repro_slab3d_inv": [_I] + [_P] * 16 + [_I] * 11 + [_P, _I, _P],
+    },
+    "filterbank": {
+        "repro_filterbank53_fwd_float": [_I] + [_P] * 3 + [_I] * 2 + [_P],
     },
 }
 

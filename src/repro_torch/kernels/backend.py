@@ -479,7 +479,7 @@ class LaunchCounter:
     ``tiled2d_inv``, ``lift1d_fwd`` / ``lift1d_inv``, ``rows1d_fwd`` /
     ``rows1d_inv`` (the 1-D row-pass fallback), ``whole3d_fwd`` /
     ``whole3d_inv``, ``slab3d_fwd`` / ``slab3d_inv``, ``rice_encode`` /
-    ``rice_decode``."""
+    ``rice_decode``, ``filterbank53_float``."""
 
     def __init__(self):
         self.counts: Dict[str, int] = {}

@@ -884,3 +884,59 @@ def test_cuda_async_save_from_a_side_stream_writes_the_tree_as_it_was(codec, cud
     assert all(torch.equal(got[k], exp[k]) for k in want)
     if codec == "raw":
         assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+FILTERBANK_LENGTHS = (3, 4, 5, 64, 255, 256, 65536)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", FILTERBANK_LENGTHS)
+def test_cuda_filterbank_kernel_matches_plain_version(n, cuda_device):
+    """The float (5,3) filter bank kernel is bit-equal to its plain version
+    (each product and sum rounded once, in the same order): rows 1, 7 and
+    1024, 8-bit values and int32 extremes, aligned and 4 bytes past a
+    16-byte boundary."""
+    from repro_torch.core import lifting as TL
+    from repro_torch.kernels import filterbank as TFB
+
+    rng = np.random.default_rng(37 + n)
+    for rows in (1, 7, 1024):
+        for kind in ("8-bit", "extremes"):
+            if kind == "8-bit":
+                x = rng.integers(0, 256, (rows, n), dtype=np.int32)
+            else:
+                x = rng.integers(I32.min, I32.max, (rows, n), dtype=np.int32, endpoint=True)
+                x[:, ::3], x[:, 1::3] = I32.min, I32.max
+            xt = torch.from_numpy(x).to(cuda_device)
+            want = TL.filterbank53_fwd_float(xt)
+            for shift in (0, 1):
+                got = TFB.filterbank53_fwd_float_cuda(_shifted(xt, shift))
+                for a, b in zip(got, want, strict=True):
+                    assert a.dtype == torch.float32 and a.shape == b.shape
+                    assert torch.equal(a, b)
+    torch.cuda.synchronize(cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_filterbank_wrapper_launches_the_kernel(cuda_device, monkeypatch):
+    """A CUDA tensor goes to the kernel (the counter up by one, the plain
+    version not called); narrow ints promote; what it cannot take raises."""
+    from repro_torch.core import lifting as TL
+
+    plain = TL.filterbank53_fwd_float
+    calls = []
+    monkeypatch.setattr(TL, "filterbank53_fwd_float", lambda x: calls.append(x) or plain(x))
+    x = torch.from_numpy(np.random.default_rng(41).integers(-32768, 32767, (2, 3, 257))
+                         .astype(np.int16)).to(cuda_device)
+    before = TK.launches.snapshot().get("filterbank53_float", 0)
+    s, d = TK.filterbank53_fwd_float(x)
+    torch.cuda.synchronize(cuda_device)
+    assert TK.launches.snapshot()["filterbank53_float"] == before + 1
+    assert not calls
+    assert s.is_cuda and s.shape == (2, 3, 129) and d.shape == (2, 3, 128)
+    for a, b in zip((s, d), plain(x.to(torch.int32)), strict=True):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        TK.filterbank53_fwd_float(x[..., :2])
+    with pytest.raises(TypeError):
+        TK.filterbank53_fwd_float(x.to(torch.int64))

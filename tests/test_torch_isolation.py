@@ -1,6 +1,8 @@
 """The port stands alone: no JAX and nothing of ``repro`` in
-``src/repro_torch`` or ``chip_smoke.py``, and its copied stdlib layers
-(``obs``, ``resilience``) behave like the reference's."""
+``src/repro_torch``, ``chip_smoke.py`` or the port's paper benchmarks
+(``benchmarks/torch_*.py``, which also leave the reference's
+``benchmarks.gate`` alone), and its copied stdlib layers (``obs``,
+``resilience``) behave like the reference's."""
 import ast
 import os
 import pathlib
@@ -17,17 +19,26 @@ from repro_torch.resilience import errors as TERR
 from repro_torch.resilience import inject as TINJ
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "benchmarks").glob("torch_*.py")))
 
 
-def _imported_roots(path: pathlib.Path):
+def _imported_modules(path: pathlib.Path):
+    """Every module an import statement names: ``a.b`` for ``import a.b``;
+    ``a`` and ``a.b`` for ``from a import b``."""
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for alias in node.names:
-                yield alias.name.split(".")[0]
+                yield alias.name
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
-            yield node.module.split(".")[0]
+            yield node.module
+            for alias in node.names:
+                yield f"{node.module}.{alias.name}"
+
+
+def _imported_roots(path: pathlib.Path):
+    return {m.split(".")[0] for m in _imported_modules(path)}
 
 
 def test_the_scan_sees_every_port_module():
@@ -39,27 +50,35 @@ def test_the_scan_sees_every_port_module():
                  "src/repro_torch/configs/dwt53.py", "src/repro_torch/kernels/fused3d.py",
                  "src/repro_torch/core/compression.py", "src/repro_torch/ckpt/checkpoint.py",
                  "src/repro_torch/ckpt/ft.py", "src/repro_torch/train/grad_compress.py",
-                 "src/repro_torch/tree.py"):
+                 "src/repro_torch/tree.py", "src/repro_torch/core/opcount.py",
+                 "src/repro_torch/core/pe.py", "src/repro_torch/kernels/filterbank.py",
+                 "src/repro_torch/timing.py", "benchmarks/torch_table2_opcounts.py",
+                 "benchmarks/torch_table3_timing.py", "benchmarks/torch_fig5_lossless.py",
+                 "benchmarks/torch_run.py"):
         assert must in names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_port_file_imports_jax_or_repro(path):
-    roots = set(_imported_roots(path))
+    roots = _imported_roots(path)
     assert not roots & {"jax", "jaxlib", "repro"}, roots
+    assert "benchmarks.gate" not in set(_imported_modules(path))
 
 
 def test_fresh_interpreter_imports_the_port_without_jax():
     code = (
         "import sys; import repro_torch.serve, repro_torch.kernels, repro_torch.codec, "
         "repro_torch.core.ranges, repro_torch.configs.dwt53, repro_torch.core.compression, "
-        "repro_torch.ckpt, repro_torch.train.grad_compress; "
+        "repro_torch.ckpt, repro_torch.train.grad_compress, repro_torch.core.opcount, "
+        "repro_torch.core.pe, repro_torch.timing, benchmarks.torch_run, "
+        "benchmarks.torch_table2_opcounts, benchmarks.torch_table3_timing, "
+        "benchmarks.torch_fig5_lossless; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'));"
         "print(bad); sys.exit(1 if bad else 0)"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
-                         text=True, timeout=120)
+                         text=True, timeout=120, cwd=ROOT)
     assert res.returncode == 0, res.stdout + res.stderr
 
 

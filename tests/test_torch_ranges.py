@@ -367,8 +367,6 @@ BY_DESIGN_ABSENT = {
     # the sharded transform (ROADMAP Queue 1 item 8)
     "dwt_fwd_2d_sharded", "dwt_inv_2d_sharded", "dwt53_fwd_2d_sharded",
     "dwt53_inv_2d_sharded",
-    # the float filter bank (ROADMAP Queue 1 item 7)
-    "filterbank53_fwd_float",
 }
 
 
