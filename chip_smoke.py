@@ -182,10 +182,31 @@ Phases (any failure raises and the script exits nonzero):
    time beside its byte bound; the plain chain and ``conv1d`` are
    comparisons, the guard paused there).  The float, lifting and row-pass
    kernels must have launched, no plain version on a CUDA tensor.
-12. Print the ``{"kernels": [...]}`` line (each kernel with its launches
-   on the checkpoint path too; the float kernel's from phase 11, its
-   times at (a)), the card line, and last the ``{"ok": true, ...}``
-   line.  ``--json-out PATH`` also writes the whole
+12. The sharded paths (``torch.distributed``, the kernels built above
+   before any rank starts): (a) phase 3's serve configuration (2048^2 and
+   1024^2 buckets, 8 slots, 5 levels, cdf53 / jpeg2000, the same
+   requests) on a one-rank NCCL mesh, plain and with
+   ``encode_response=True``, every response and container equal to the
+   mesh-less engine's, with the counters reset just before and read just
+   after (``whole2d_fwd``, ``tiled2d_fwd`` and ``rice_encode`` must have
+   launched); (b) 4 gloo ranks on the one card (NCCL refuses two ranks
+   on one GPU; halo rows staged through pinned host buffers) running
+   ``dwt_fwd_2d_sharded`` / ``dwt_inv_2d_sharded`` on 8 x 2048^2 at 5
+   levels for cdf53 / jpeg2000, 97m / paper and haar / paper, each
+   rank's bands ``torch.equal`` to its rows of ``dwt_fwd_2d_multi`` on
+   the card and each round trip exact, one collective-watchdog trip
+   (a delay fault), per-rank host ms of one forward and one inverse and
+   ``collectives.exchange_ms``; (c) 2 gloo ranks running
+   ``pod_sync_tree`` on float32 gradients shaped like phase 10's tree
+   (stablelm-2-1.6b at full width, 4 layers), the 3-D, 2-D and raw
+   routes with the spatial codecs on and the 1-D route on three leaves
+   with them off: ring bytes per hop equal to ``pod_collective_bytes``'
+   payload, the smallest leaf of each route equal to the same sync on
+   the CPU, ms per route.
+13. Print the ``{"kernels": [...]}`` line (each kernel with its launches
+   on the checkpoint path and on the sharded paths too; the float
+   kernel's from phase 11, its times at (a)), the card line, and last the
+   ``{"ok": true, ...}`` line.  ``--json-out PATH`` also writes the whole
    record (every batch latency, every level's, band's and shape's time)
    to PATH.
 """
@@ -2836,6 +2857,357 @@ def filterbank_entry(pe: dict) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the sharded transform and the cross-pod gradient ring.
+# ---------------------------------------------------------------------------
+
+# (b): the serve batch of phase 3's big bucket, rows over 4 ranks
+SHARDED_SHAPE = (SLOTS,) + BUCKETS[-1]
+SHARDED_RANKS = 4
+SHARDED_SCHEMES = (("cdf53", "jpeg2000"), ("97m", "paper"), ("haar", "paper"))
+WATCHDOG_DELAY_S = 2.0
+# (c): phase 10's tree (stablelm-2-1.6b at full width, 4 layers) on 2 pods
+POD_RANKS = 2
+POD_LAYERS = CKPT_LAYERS
+
+
+def _world(backend: str, rank: int, world: int, init: str, device_type: str,
+           axis: str = "data"):
+    """Join a ``torch.distributed`` world (``file://`` rendezvous: no
+    network) and return its 1-D mesh; the card is cuda:0 for every rank."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh_compat
+
+    if device_type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=init, world_size=world, rank=rank)
+    return make_mesh_compat((world,), (axis,), device_type)
+
+
+def _scratch(prefix: str) -> pathlib.Path:
+    """A fresh directory under ``build/`` (the checkout's, gitignored)."""
+    (ROOT / "build").mkdir(exist_ok=True)
+    return pathlib.Path(tempfile.mkdtemp(prefix=prefix, dir=ROOT / "build"))
+
+
+def _spawn(fn, world: int, args: tuple, outdir: pathlib.Path) -> list:
+    """Run ``fn(rank, world, init, outdir, *args)`` on ``world`` spawned
+    processes, wait for all of them, and return each rank's JSON record."""
+    import torch.multiprocessing as mp
+
+    init = f"file://{outdir / 'rendezvous'}"
+    mp.spawn(fn, args=(world, init, str(outdir)) + args, nprocs=world, join=True)
+    return [json.loads((outdir / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def _serve_run(images, dev, encode: bool, mesh) -> tuple:
+    """One engine of phase 3's configuration serving ``images``: the
+    served requests by uid, each batch's host ms, and the launches
+    (counters reset just before the first step, read after the last)."""
+    from repro_torch import kernels as K
+    from repro_torch.serve import TransformRequest, WaveletServeEngine
+
+    eng = WaveletServeEngine(buckets=BUCKETS, batch_slots=SLOTS, levels=LEVELS, scheme=SCHEME,
+                             mode=MODE, device=str(dev), encode_response=encode, mesh=mesh)
+    eng.warmup()
+    for i, img in enumerate(images):
+        eng.submit(TransformRequest(uid=i, image=img))
+    K.launches.reset()
+    lat, done = [], []
+    while eng.scheduler.pending():
+        t = time.perf_counter()
+        done.extend(eng.step())
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        lat.append((time.perf_counter() - t) * 1e3)
+    return sorted(done, key=lambda r: r.uid), lat, K.launches.snapshot()
+
+
+def mesh_serve(rng, dev, n_requests) -> dict:
+    """Phase 12 (a): phase 3's serve configuration on a one-rank mesh
+    (NCCL on the card), plain and with ``encode_response=True``, in turns
+    with the mesh-less engine (mesh, mesh-less, mesh-less, mesh); every
+    response and container must equal the mesh-less engine's."""
+    import torch.distributed as dist
+
+    from repro_torch.collectives import AxisComm
+
+    tmp = _scratch("mesh_")
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    mesh = _world(backend, 0, 1, f"file://{tmp / 'rendezvous'}", dev.type)
+    out = {"route": AxisComm(mesh, "data").route(dev), "runs": {}}
+    try:
+        images = [r.image for r in make_requests(rng, n_requests)]
+        for encode in (False, True):
+            runs = [_serve_run(images, dev, encode, m) for m in (mesh, None, None, mesh)]
+            for (a_done, _, counts), (b_done, _, _) in ((runs[0], runs[1]), (runs[3], runs[2])):
+                if len(a_done) != n_requests or len(b_done) != n_requests:
+                    raise AssertionError(f"mesh serve: {len(a_done)} / {len(b_done)} served")
+                for a, b in zip(a_done, b_done):
+                    if a.error is not None or not a.done:
+                        raise AssertionError(f"mesh serve request {a.uid} failed: {a.error}")
+                    _equal_or_raise(
+                        f"mesh serve request {a.uid}",
+                        [a.pyramid.ll] + [x for lvl in a.pyramid.details for x in lvl],
+                        [b.pyramid.ll] + [x for lvl in b.pyramid.details for x in lvl])
+                    if encode and (a.encoded != b.encoded or a.batch_index != b.batch_index):
+                        raise AssertionError(f"mesh serve request {a.uid}: container differs")
+                want = ("whole2d_fwd", "tiled2d_fwd") + (("rice_encode",) if encode else ())
+                missing = [k for k in want if not counts.get(k)]
+                if missing and dev.type == "cuda":  # (a CPU rehearsal runs plain versions)
+                    raise AssertionError(f"mesh serve: {missing} never launched: {counts}")
+            out["runs"]["encoded" if encode else "plain"] = {
+                "requests": n_requests, "batches": len(runs[0][1]), "launches": runs[0][2],
+                "mesh_batch_ms": runs[0][1] + runs[3][1],
+                "plain_batch_ms": runs[1][1] + runs[2][1],
+                "batch_ms_p50": statistics.median(runs[0][1] + runs[3][1]),
+                "plain_batch_ms_p50": statistics.median(runs[1][1] + runs[2][1])}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _sharded_rank(rank, world, init, outdir, seed, shape, levels, device_type):
+    """Phase 12 (b), one rank: the sharded pyramid of each scheme on this
+    rank's rows, held against the single-device pyramid; one watchdog
+    trip; host ms of one forward and one inverse."""
+    import threading
+
+    from repro_torch import kernels as K
+    from repro_torch import obs
+    from repro_torch.collectives import AxisComm
+    from repro_torch.kernels import sharded as SHD
+    from repro_torch.resilience import inject
+    from repro_torch.resilience.errors import CollectiveTimeoutError
+
+    mesh = _world("gloo", rank, world, init, device_type)
+    dev = torch.device("cuda", 0) if device_type == "cuda" else torch.device("cpu")
+    comm = AxisComm(mesh, "data")
+    rows = slice(comm.index * shape[-2] // world, (comm.index + 1) * shape[-2] // world)
+    x = torch.from_numpy(np.random.default_rng(seed).integers(-128, 128, shape, dtype=np.int32))
+    rec = {"rank": rank, "route": comm.route(dev), "schemes": {}}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    results = {}
+    for scheme, mode in SHARDED_SCHEMES:  # warm: plans, libraries, pinned pool
+        SHD.dwt_inv_2d_sharded(SHD.dwt_fwd_2d_sharded(x, mesh, levels, mode, scheme=scheme),
+                               mesh, mode, scheme=scheme)
+    sync()
+    obs.reset()
+    K.launches.reset()
+    x_rows = SHD._to_global(x[..., rows, :].to(dev), mesh, "data", comm)  # shards on the card
+    sync()
+    for scheme, mode in SHARDED_SCHEMES:
+        t = time.perf_counter()
+        pyr = SHD.dwt_fwd_2d_sharded(x, mesh, levels, mode, scheme=scheme, timeout_s=120.0)
+        sync()
+        fwd_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        back = SHD.dwt_inv_2d_sharded(pyr, mesh, mode, scheme=scheme, timeout_s=120.0)
+        sync()
+        inv_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        SHD.dwt_fwd_2d_sharded(x_rows, mesh, levels, mode, scheme=scheme, timeout_s=120.0)
+        sync()
+        dev_fwd_ms = (time.perf_counter() - t) * 1e3
+        results[scheme] = (pyr, back)
+        rec["schemes"][scheme] = {"mode": mode, "forward_host_ms": fwd_ms,
+                                  "inverse_host_ms": inv_ms,
+                                  "forward_from_card_shards_host_ms": dev_fwd_ms}
+    rec["launches"] = K.launches.snapshot()
+    metrics = obs.snapshot()["metrics"]
+    rec["exchange_ms"] = metrics.get("collectives.exchange_ms")
+    rec["wire_bytes"] = {k: v for k, v in metrics.items() if k.startswith("collectives.wire")}
+    xd = x.to(dev)
+    for scheme, mode in SHARDED_SCHEMES:  # comparisons, after the counts were read
+        pyr, back = results[scheme]
+        want = K.dwt_fwd_2d_multi(xd, levels=levels, mode=mode, scheme=scheme)
+        got_leaves = [pyr.ll] + [b for lvl in pyr.details for b in lvl]
+        want_leaves = [want.ll] + [b for lvl in want.details for b in lvl]
+        for g, w in zip(got_leaves, want_leaves):
+            n = w.shape[-2] // world
+            if not torch.equal(g.to_local(), w[..., comm.index * n:(comm.index + 1) * n, :]):
+                raise AssertionError(f"rank {rank} {scheme}: sharded band != dwt_fwd_2d_multi")
+        if not torch.equal(back.to_local(), xd[..., rows, :]):
+            raise AssertionError(f"rank {rank} {scheme}: sharded round trip is not exact")
+    # a stuck neighbour, simulated: every rank waits WATCHDOG_DELAY_S in the timed region
+    try:
+        with inject.armed("sharded.collective", action="delay", delay_s=WATCHDOG_DELAY_S):
+            SHD.dwt_fwd_2d_sharded(x, mesh, levels, "paper", scheme="cdf53", timeout_s=0.2)
+        raise AssertionError("the watchdog did not trip")
+    except CollectiveTimeoutError as e:
+        rec["watchdog"] = str(e)
+    for t in threading.enumerate():
+        if t.name.startswith(SHD.WATCHDOG_THREAD):
+            t.join(120.0)
+    rec["watchdog_trips"] = obs.snapshot()["metrics"].get("collectives.watchdog_trips")
+    import torch.distributed as dist
+
+    dist.barrier()
+    (pathlib.Path(outdir) / f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.destroy_process_group()
+
+
+def pod_tree(rank: int, seed: int, dev, layers: int) -> dict:
+    """float32 gradients shaped like phase 10's tree, normal(0, 1e-3) from
+    a per-rank seed, made on ``dev``."""
+    from repro_torch import tree as T
+
+    gen = torch.Generator(device=dev).manual_seed(1000 * seed + rank)
+    return T.map_leaves(lambda s: torch.randn(s.shape, generator=gen, device=dev).mul_(1e-3),
+                        stablelm_spec(layers))
+
+
+def _ring_bytes() -> int:
+    from repro_torch import obs
+
+    return int(sum(v for k, v in obs.snapshot()["metrics"].items()
+                   if k.startswith("collectives.wire_bytes") and 'op="ring"' in k))
+
+
+def _pod_rank(rank, world, init, outdir, seed, layers, device_type):
+    """Phase 12 (c), one rank: ``pod_sync_tree`` over 2 pods on the
+    gradients of phase 10's tree, every route; ring bytes against the
+    analytic figure; one leaf of each route against the same sync on the
+    CPU."""
+    import math
+
+    import torch.distributed as dist
+
+    from repro_torch import kernels as K
+    from repro_torch import obs
+    from repro_torch import tree as T
+    from repro_torch.collectives import AxisComm
+    from repro_torch.train import grad_compress as G
+
+    mesh = _world("gloo", rank, world, init, device_type, axis="pod")
+    dev = torch.device("cuda", 0) if device_type == "cuda" else torch.device("cpu")
+    grads = dict(T.leaf_paths(pod_tree(rank, seed, dev, layers)))
+    spatial = G.WaveletSyncConfig(n_pods=world, spatial_2d=True, spatial_3d=True)
+    flat = G.WaveletSyncConfig(n_pods=world)
+    # every route: the spatial codecs give 3d / 2d / raw on this tree; the
+    # 1-D route takes the ln1 stacks and one attention stack with them off
+    groups = collections.defaultdict(dict)
+    for name, g in grads.items():
+        groups[G.leaf_route(g, spatial)][name] = g
+    groups["1d"] = {k: grads[k] for k in ("layers/ln1/scale", "layers/ln1/bias",
+                                          "layers/attn/wq")}
+    rec = {"rank": rank, "route": AxisComm(mesh, "pod").route(dev), "routes": {}}
+    synced = {}
+    K.launches.reset()
+    for route in ("3d", "2d", "1d", "raw"):
+        cfg = flat if route == "1d" else spatial
+        sub = groups[route]
+        err = G.init_error_feedback(sub)
+        obs.reset()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        s, e = G.pod_sync_tree(sub, err, cfg, axis_name="pod", mesh=mesh)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t) * 1e3
+        # the analytic payload less its 8 bytes a slice for the scale and
+        # shifts, which travel by all_reduce, not by the ring
+        want = sum(G.pod_collective_bytes({k: v}, cfg)[1] - 8 * (
+            1 if route == "1d" else v.numel() // math.prod(
+                v.shape[-3:] if route == "3d" else v.shape[-2:]))
+            for k, v in sub.items() if G.leaf_route(v, cfg) == route != "raw")
+        got = _ring_bytes()
+        if got != want:
+            raise AssertionError(f"rank {rank} route {route}: ring shipped {got} bytes, "
+                                 f"analytic payload {want}")
+        rec["routes"][route] = {"leaves": len(sub), "elements": sum(v.numel() for v in sub.values()),
+                                "ms": ms, "ring_bytes_per_hop": got,
+                                "analytic_bytes": G.pod_collective_bytes(sub, cfg)}
+        synced[route] = (s, e)
+    rec["launches"] = K.launches.snapshot()
+    other = dict(T.leaf_paths(pod_tree(1 - rank, seed, dev, layers))) if world == 2 else None
+    # one leaf of each route (its smallest) through the same sync on the CPU
+    for route in ("3d", "2d", "1d", "raw"):
+        cfg = flat if route == "1d" else spatial
+        name = min(groups[route], key=lambda k: groups[route][k].numel())
+        g = groups[route][name]
+        s_cpu, e_cpu = G.pod_sync_tree({name: g.cpu()}, {name: torch.zeros(g.shape)}, cfg,
+                                       axis_name="pod", mesh=mesh)
+        s_dev, e_dev = synced[route][0][name], synced[route][1][name]
+        if not (torch.equal(s_cpu[name], s_dev.cpu()) and torch.equal(e_cpu[name], e_dev.cpu())):
+            raise AssertionError(f"rank {rank} route {route} leaf {name}: card != CPU sync")
+        if other is not None:
+            mean = (g + other[name]) / 2
+            rel = float((s_dev - mean).norm() / mean.norm())
+            # white-noise gradients are the codec's worst case (~4% on the
+            # CPU rehearsal); a pod's payload lost on the wire is ~70%
+            if rel > 0.25:
+                raise AssertionError(f"route {route} leaf {name}: {rel} from the pod mean")
+            rec["routes"][route].update(checked_leaf=name, rel_error_vs_mean=rel)
+    dist.barrier()
+    (pathlib.Path(outdir) / f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.destroy_process_group()
+
+
+def sharded_paths(rng, dev, n_requests) -> dict:
+    """Phase 12: (a) the serve route on a one-rank NCCL mesh; (b) 4 gloo
+    ranks on the card running the sharded pyramid; (c) 2 gloo ranks
+    running the cross-pod gradient ring on phase 10's tree."""
+    out = {}
+    t = time.perf_counter()
+    out["serve"] = mesh_serve(rng, dev, n_requests)
+    out["serve"]["s"] = time.perf_counter() - t
+    seed = int(rng.integers(1 << 30))
+    for key, fn, world, args in (
+            ("transform", _sharded_rank, SHARDED_RANKS, (seed, SHARDED_SHAPE, LEVELS, dev.type)),
+            ("pod_sync", _pod_rank, POD_RANKS, (seed, POD_LAYERS, dev.type))):
+        tmp = _scratch(f"{key}_")
+        t = time.perf_counter()
+        try:
+            out[key] = {"ranks": _spawn(fn, world, args, tmp)}
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        out[key]["s"] = time.perf_counter() - t
+    return out
+
+
+def print_sharded(sp: dict, card: str) -> None:
+    sv = sp["serve"]
+    for key, run in sv["runs"].items():
+        print(f"mesh serve ({key}, one-rank mesh, transport {sv['route']}): {run['requests']} "
+              f"requests in {run['batches']} batches, twice, equal to the mesh-less engine's "
+              f"(pyramids{' and WZRC bytes' if key == 'encoded' else ''}); batch p50 "
+              f"{run['batch_ms_p50']:.2f} ms (mesh-less {run['plain_batch_ms_p50']:.2f} ms; "
+              f"in turns mesh, mesh-less, mesh-less, mesh: "
+              + ", ".join(f"{v:.2f}" for v in run["mesh_batch_ms"]) + " / "
+              + ", ".join(f"{v:.2f}" for v in run["plain_batch_ms"])
+              + f"); launches {run['launches']} ({card})")
+    tr = sp["transform"]
+    for r in tr["ranks"]:
+        print(f"sharded {SHARDED_SHAPE} x {LEVELS} levels, rank {r['rank']} of {SHARDED_RANKS} "
+              f"(gloo on one card, transport {r['route']}): " + "; ".join(
+                  f"{k} forward {v['forward_host_ms']:.2f} ms (from shards on the card "
+                  f"{v['forward_from_card_shards_host_ms']:.2f}), inverse "
+                  f"{v['inverse_host_ms']:.2f} ms" for k, v in r["schemes"].items())
+              + f"; exchange_ms {r['exchange_ms']}; launches {r['launches']}; "
+              f"wire {r['wire_bytes']}; watchdog trips {r['watchdog_trips']} ({card})")
+    print(f"sharded: every band equal to dwt_fwd_2d_multi on the card and every round trip "
+          f"exact on all {SHARDED_RANKS} ranks ({tr['s']:.1f} s); watchdog: "
+          f"{tr['ranks'][0]['watchdog']}")
+    ps = sp["pod_sync"]
+    for r in ps["ranks"]:
+        print(f"pod sync rank {r['rank']} of {POD_RANKS} (stablelm-2-1.6b, {POD_LAYERS} layers, "
+              f"transport {r['route']}): " + "; ".join(
+                  f"{k} {v['leaves']} leaves {v['elements']} values {v['ms']:.1f} ms, ring "
+                  f"{v['ring_bytes_per_hop']} bytes a hop (analytic {v['analytic_bytes']}), "
+                  f"{v.get('checked_leaf')} == CPU sync, {v.get('rel_error_vs_mean', 0):.2e} "
+                  f"from the mean" for k, v in r["routes"].items())
+              + f"; launches {r['launches']} ({card})")
+    print(f"pod sync: {ps['s']:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3019,16 +3391,20 @@ def main() -> int:
     print_checkpoint(ck, card, time.perf_counter() - t)
     pe = paper_evaluation(rng, dev)
     print_paper(pe, card)
+    sp = sharded_paths(rng, dev, args.requests)
+    print_sharded(sp, card)
     kernels_paper = [filterbank_entry(pe)]
     for k in kernels + kernels_1d + kernels_3d + kernels_paper:
         k["launches_ckpt"] = ck["launches"].get(k["name"], 0)
+        k["launches_sharded"] = (sp["serve"]["runs"]["encoded"]["launches"].get(k["name"], 0)
+                                 + sp["transform"]["ranks"][0]["launches"].get(k["name"], 0))
     if args.json_out:
         record = {"card": card, "torch": torch.__version__, "seed": args.seed,
                   "checkpoint": ck,
                   "parity_cases": checks, "serve": srv, "serve_encoded": enc,
                   "path_1d": lib, "kernels_1d_shapes": shapes_1d, "path_3d": vp,
                   "kernels_3d_levels": levels_3d, "whole2d_chains": chains_2d,
-                  "paper_evaluation": pe,
+                  "paper_evaluation": pe, "sharded": sp,
                   "kernels": kernels + kernels_1d + kernels_3d + kernels_paper}
         out = pathlib.Path(args.json_out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -7,9 +7,10 @@ Port of ``repro.ckpt.ft``, plain Python over the port's
     function makes the replay deterministic),
   * straggler detection: a per-step wall-time watchdog flags steps slower
     than ``threshold x`` the running median,
-  * :func:`reshard_to_mesh`: a device move of the restored tree.  The
-    reference places the tree onto a (new) mesh's shardings; the port has
-    no meshes until ROADMAP.md Queue 1 item 8.
+  * :func:`reshard_to_mesh`: the elastic-restart placement of a restored
+    tree onto a (new) mesh, from ``(mesh, placements)`` pairs
+    (``sharding.tree_shardings``) with ``distribute_tensor``, or a plain
+    device move.
 
 Node loss itself is simulated: ``fail_at`` raises mid-run in tests, and
 recovery is restore + replay.
@@ -108,8 +109,28 @@ class TrainLoopRunner:
         return state, step
 
 
-def reshard_to_mesh(tree: PyTree, device) -> PyTree:
-    """Move every tensor of a (restored) tree to ``device`` — the
-    elastic-restart path, until meshes exist in the port."""
-    dev = torch.device(device)
-    return T.map_leaves(lambda t: t.to(dev), tree)
+def reshard_to_mesh(tree: PyTree, shardings) -> PyTree:
+    """Place a host or device tree onto a (possibly new) mesh — the
+    elastic-restart path after a failure changes the rank count.
+
+    ``shardings`` is a tree of ``(mesh, placements)`` pairs shaped like
+    ``tree`` (``sharding.tree_shardings``): each leaf (a tensor or a
+    numpy array) becomes a DTensor by ``distribute_tensor``, which every
+    rank of the mesh calls in step.  A device (``"cuda"``, ``"cpu"``)
+    instead moves every leaf there."""
+    if isinstance(shardings, (str, torch.device)):
+        dev = torch.device(shardings)
+        return T.map_leaves(lambda t: torch.as_tensor(t).to(dev), tree)
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.collectives import mesh_device
+    from repro_torch.sharding import is_sharding
+
+    pairs = T.leaves(shardings, is_leaf=is_sharding)
+    leaves = T.leaves(tree)
+    if len(pairs) != len(leaves):
+        raise ValueError(f"{len(leaves)} leaves but {len(pairs)} shardings")
+    return T.unflatten(tree, [
+        distribute_tensor(torch.as_tensor(x).to(mesh_device(mesh)), mesh, list(placements))
+        for x, (mesh, placements) in zip(leaves, pairs)
+    ])

@@ -136,18 +136,37 @@ def compress_lowband(
     return CompressedBand(low=pyr.approx, scale=scale, n=lines.numel(), levels=levels)
 
 
-def decompress_lowband(
+def reconstruct_lowband(
     band: CompressedBand, out_shape, mode: str = "paper", scheme: str = "cdf53"
 ) -> Tensor:
-    """Inverse DWT with zeroed detail bands, dequantize, reshape."""
+    """Inverse DWT with zeroed detail bands, reshaped: the int32 samples
+    :func:`decompress_lowband` dequantizes."""
     n_lines, _ = band.low.shape
     line = band.n // n_lines
     _, d_lens = lifting.band_sizes(line, band.levels)
     details = tuple(band.low.new_zeros((n_lines, dl)) for dl in d_lens)
     pyr = lifting.WaveletPyramid(approx=band.low, details=details)
     flat = K.dwt_inv(pyr, mode=mode, scheme=scheme).reshape(-1)
-    g = dequantize(flat[: math.prod(out_shape)], band.scale)
-    return g.reshape(tuple(out_shape))
+    return flat[: math.prod(out_shape)].reshape(tuple(out_shape))
+
+
+def decompress_lowband(
+    band: CompressedBand, out_shape, mode: str = "paper", scheme: str = "cdf53"
+) -> Tensor:
+    """Inverse DWT with zeroed detail bands, dequantize, reshape."""
+    return dequantize(reconstruct_lowband(band, out_shape, mode, scheme), band.scale)
+
+
+def residual_fused(g32: Tensor, q: Tensor, scale: Scale) -> Tensor:
+    """``g32 - q * scale`` rounded ONCE to float32, as a fused
+    multiply-subtract computes it: the reference's error feedback
+    (``repro.train.grad_compress``) is one XLA program, whose compiler
+    contracts the dequantize into the subtraction.  The product of an
+    integer of at most 31 bits and a float32 scale and the difference
+    are taken in float64, so the result does not depend on the device
+    contracting anything."""
+    s = scale.to(torch.float64) if isinstance(scale, Tensor) else float(scale)
+    return (g32.to(torch.float64) - q.to(torch.float64) * s).to(torch.float32)
 
 
 def _residual(g: Tensor, g_hat: Tensor) -> Tensor:
@@ -342,13 +361,26 @@ def decompress_bands_nd(
     mode: str = "paper",
     scheme: str = "cdf53",
 ) -> Tensor:
+    return dequantize(
+        reconstruct_bands_nd(approx_i32, details_i32, shifts, out_shape, mode, scheme), scale)
+
+
+def reconstruct_bands_nd(
+    approx_i32: Tensor,
+    details_i32: Tuple[Tensor, ...],
+    shifts: Tuple[Tensor, Tuple[Tensor, ...]],
+    out_shape,
+    mode: str = "paper",
+    scheme: str = "cdf53",
+) -> Tensor:
+    """Un-shift and inverse last-axis pyramid: the int32 samples
+    :func:`decompress_bands_nd` dequantizes."""
     a_sh, d_shs = shifts
     pyr = lifting.WaveletPyramid(
         approx=_widen(approx_i32, a_sh),
         details=tuple(_widen(d, sh) for d, sh in zip(details_i32, d_shs)),
     )
-    flat = K.dwt_inv(pyr, mode=mode, scheme=scheme)
-    return dequantize(flat.reshape(tuple(out_shape)), scale)
+    return K.dwt_inv(pyr, mode=mode, scheme=scheme).reshape(tuple(out_shape))
 
 
 # ---------------------------------------------------------------------------
@@ -414,9 +446,16 @@ def decompress_pyramid_2d(
     scheme: str = "cdf53",
 ) -> Tensor:
     """Un-shift, inverse 2-D pyramid, dequantize."""
+    return dequantize(reconstruct_pyramid_2d(ll_i32, details_i32, shifts, mode, scheme), scale)
+
+
+def reconstruct_pyramid_2d(
+    ll_i32: Tensor, details_i32, shifts, mode: str = "paper", scheme: str = "cdf53",
+) -> Tensor:
+    """Un-shift, inverse 2-D pyramid: the int32 samples
+    :func:`decompress_pyramid_2d` dequantizes."""
     ll, details = _level_widen(ll_i32, details_i32, shifts)
-    x = K.dwt_inv_2d_multi(lifting.Pyramid2D(ll=ll, details=details), mode=mode, scheme=scheme)
-    return dequantize(x, scale)
+    return K.dwt_inv_2d_multi(lifting.Pyramid2D(ll=ll, details=details), mode=mode, scheme=scheme)
 
 
 def band_quantized_roundtrip_2d(
@@ -456,9 +495,17 @@ def decompress_pyramid_nd(
     scheme: str = "cdf53",
 ) -> Tensor:
     """Un-shift, inverse N-D pyramid, dequantize."""
+    return dequantize(reconstruct_pyramid_nd(approx_i32, details_i32, shifts, mode, scheme), scale)
+
+
+def reconstruct_pyramid_nd(
+    approx_i32: Tensor, details_i32, shifts, mode: str = "paper", scheme: str = "cdf53",
+) -> Tensor:
+    """Un-shift, inverse N-D pyramid: the int32 samples
+    :func:`decompress_pyramid_nd` dequantizes."""
     approx, details = _level_widen(approx_i32, details_i32, shifts)
-    x = K.dwt_inv_nd(lifting.PyramidND(approx=approx, details=details), mode=mode, scheme=scheme)
-    return dequantize(x, scale)
+    return K.dwt_inv_nd(lifting.PyramidND(approx=approx, details=details), mode=mode,
+                        scheme=scheme)
 
 
 def band_quantized_roundtrip_nd(

@@ -82,6 +82,12 @@ from repro_torch.kernels.ops import (  # noqa: F401
     dwt_inv_1d,
     plan_1d,
 )
+from repro_torch.kernels.sharded import (  # noqa: F401
+    dwt53_fwd_2d_sharded,
+    dwt53_inv_2d_sharded,
+    dwt_fwd_2d_sharded,
+    dwt_inv_2d_sharded,
+)
 
 __all__ = [
     "Bands2D",
@@ -135,4 +141,8 @@ __all__ = [
     "dwt_inv",
     "dwt_inv_1d",
     "plan_1d",
+    "dwt53_fwd_2d_sharded",
+    "dwt53_inv_2d_sharded",
+    "dwt_fwd_2d_sharded",
+    "dwt_inv_2d_sharded",
 ]

@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -587,8 +588,11 @@ def plan_3d(d: int, h: int, w: int, device="cuda", scheme="cdf53") -> str:
 
 
 def _flat(a: Tensor, nd: int) -> Tensor:
-    """(*lead, *trailing) -> contiguous (B, *trailing) in the compute dtype."""
-    return a.reshape((-1,) + tuple(a.shape[a.ndim - nd:])).to(_compute_dtype(a.dtype)).contiguous()
+    """(*lead, *trailing) -> contiguous (B, *trailing) in the compute dtype.
+    B is the product of the lead dims, not ``-1``: that cannot be
+    inferred when a trailing dim is 0."""
+    b = math.prod(a.shape[:a.ndim - nd])
+    return a.reshape((b,) + tuple(a.shape[a.ndim - nd:])).to(_compute_dtype(a.dtype)).contiguous()
 
 
 def _fwd_nd_via_2d(x: Tensor, levels: int, mode: str, sch) -> PyramidND:

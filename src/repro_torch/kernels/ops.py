@@ -30,6 +30,7 @@ against the derived range bounds (``core/ranges.py``) and raise
 """
 from __future__ import annotations
 
+import math
 from typing import List, Tuple
 
 import torch
@@ -68,8 +69,11 @@ def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
 
 
 def _rows(a: Tensor) -> Tensor:
-    """(..., n) -> contiguous (rows, n) in the compute dtype."""
-    return a.reshape(-1, a.shape[-1]).to(_compute_dtype(a.dtype)).contiguous()
+    """(..., n) -> contiguous (rows, n) in the compute dtype.  The row
+    count is the product of the lead dims, not ``-1``: that cannot be
+    inferred when n is 0."""
+    rows = math.prod(a.shape[:-1])
+    return a.reshape(rows, a.shape[-1]).to(_compute_dtype(a.dtype)).contiguous()
 
 
 # ---------------------------------------------------------------------------

@@ -3,21 +3,25 @@
     scheduler.py   bucketed FIFO admission — shape routing, load
                    shedding, deadlines (host-only, no device work)
     executor.py    transform callables cached per
-                   (bucket, slots, scheme, levels, mode, device)
+                   (bucket, slots, scheme, levels, mode, device, mesh)
     engine.py      micro-batch assembly, bounded retry, batch-level
                    WZRC response encode
     routes.py      progressive fidelity tiers (thumbnail / refine /
                    full) from one stored bitstream per micro-batch
 
-Port of ``repro.serve`` without the sharded route and the LM engine
-(``ROADMAP.md``, Queue 1).
+Port of ``repro.serve`` without the LM engine (``ROADMAP.md``, Queue 1
+item 9).
 """
 from repro_torch.serve.engine import (  # noqa: F401
     TransformRequest,
     WaveletServeEngine,
     crop_result,
 )
-from repro_torch.serve.executor import ExecKey, TransformExecutor  # noqa: F401
+from repro_torch.serve.executor import (  # noqa: F401
+    ExecKey,
+    TransformExecutor,
+    mesh_signature,
+)
 from repro_torch.serve.routes import (  # noqa: F401
     ProgressiveServeRoute,
     StoredResponse,
@@ -34,5 +38,6 @@ __all__ = [
     "TransformRequest",
     "WaveletServeEngine",
     "crop_result",
+    "mesh_signature",
     "tier_shape",
 ]

@@ -40,8 +40,15 @@ submit, as the reference: one host min/max and a cascade trace
 (``core.ranges.assert_interval_safe``) reject a request whose samples
 could wrap a lifting intermediate before it rides a batch.
 
-Not ported yet, and refused with ``NotImplementedError``: ``mesh=``
-(ROADMAP.md Queue 1, item 8: the sharded transform).
+``mesh=`` (a ``torch.distributed`` ``DeviceMesh``) serves 2-D buckets
+through the row-sharded transform (``kernels.dwt_fwd_2d_sharded`` over
+``mesh[mesh_axis]``), as in the reference: every rank runs the same
+engine on the same requests, each moves only its rows of the host batch
+to its device, and the step gathers the bands (``full_tensor()``) before
+it crops and encodes the responses, so responses and WZRC bytes are the
+mesh-less engine's.  Each bucket must pass
+``kernels.sharded.check_shardable``; volume buckets with a mesh raise the
+reference's ``ValueError`` (the sharded route is 2-D only).
 """
 from __future__ import annotations
 
@@ -57,7 +64,7 @@ from repro_torch.core import ranges as _ranges
 from repro_torch.kernels._build import is_kernel_fault
 from repro_torch.resilience import inject
 from repro_torch.resilience.errors import ResilienceWarning, RetryExhaustedError, RetryWarning
-from repro_torch.serve.executor import ExecKey, TransformExecutor
+from repro_torch.serve.executor import ExecKey, TransformExecutor, mesh_signature
 from repro_torch.serve.scheduler import BucketScheduler
 
 Shape = Tuple[int, ...]
@@ -112,7 +119,8 @@ class WaveletServeEngine:
     scheme: str = "cdf53"  # lifting scheme from the registry
     device: str = "cuda"
     encode_response: bool = False  # attach WZRC bytes to served requests
-    mesh: Optional[Any] = None
+    mesh: Optional[Any] = None  # torch.distributed DeviceMesh -> sharded transform
+    mesh_axis: str = "data"
     max_queue: int = 1024  # admission budget: submit() sheds beyond this
     deadline_s: Optional[float] = None  # per-request deadline (from submit)
     max_retries: int = 2  # transform retries after the first attempt
@@ -124,11 +132,6 @@ class WaveletServeEngine:
         from repro_torch.core import lifting as _lifting
         from repro_torch.core import schemes as _schemes
 
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "mesh is not ported to repro_torch yet; see ROADMAP.md Queue 1 item 8 "
-                "(the sharded transform)"
-            )
         if self.batch_slots < 1:
             raise ValueError(f"batch_slots must be >= 1, got {self.batch_slots}")
         if self.max_retries < 0:
@@ -153,12 +156,25 @@ class WaveletServeEngine:
         for b in bucket_list:
             if len(b) == 3:
                 _lifting.check_levels_nd(b, self.levels)
+                if self.mesh is not None:
+                    raise ValueError(
+                        "the sharded mesh route is 2D-only; volume buckets "
+                        "(depth set) serve through the fused N-D engine"
+                    )
             else:
                 _lifting.check_levels_2d(b[0], b[1], self.levels)
+            if self.mesh is not None:
+                from repro_torch.kernels import sharded as _sharded
+                from repro_torch.launch.mesh import axis_size
+
+                _sharded.check_shardable(
+                    b[0], b[1], axis_size(self.mesh, self.mesh_axis), self.levels, self.scheme,
+                )
 
         self.scheduler = BucketScheduler(
             bucket_list, max_queue=self.max_queue, deadline_s=self.deadline_s
         )
+        self._mesh_sig = mesh_signature(self.mesh)
         # requests that went overdue on the retry-exhausted re-queue
         # path; delivered (with their typed error) by the next step()
         self._expired_out: List[TransformRequest] = []
@@ -188,6 +204,7 @@ class WaveletServeEngine:
             levels=self.levels,
             mode=self.mode,
             device=str(self.device),
+            mesh_axes=self._mesh_sig,
         )
 
     def warmup(self) -> int:
@@ -196,10 +213,11 @@ class WaveletServeEngine:
         ``encode_response``, also build the Rice kernels and run an encode
         and a decode once.  Returns how many callables were new."""
         dev = self._device()
-        new = self.executor.warmup(self._exec_key(b) for b in self.scheduler.buckets)
+        new = self.executor.warmup((self._exec_key(b) for b in self.scheduler.buckets),
+                                   self.mesh, self.mesh_axis)
         for b in self.scheduler.buckets:
             zeros = torch.zeros((self.batch_slots,) + b, dtype=torch.int32, device=dev)
-            self.executor.executable(self._exec_key(b))(zeros)
+            self.executor.executable(self._exec_key(b), self.mesh, self.mesh_axis)(zeros)
         if self.encode_response:
             from repro_torch.codec import rice
 
@@ -238,6 +256,17 @@ class WaveletServeEngine:
 
     # -- execution ----------------------------------------------------------
 
+    def _transform(self, batch_np: np.ndarray, key: ExecKey, dev):
+        """One attempt: the whole batch to ``dev``; or, on a mesh, the
+        host batch to the sharded transform (each rank moves its rows)
+        and the bands gathered whole."""
+        batch = torch.from_numpy(batch_np)
+        if self.mesh is None:
+            return self.executor.transform(batch.to(dev), key)
+        pyr = self.executor.transform(batch, key, self.mesh, self.mesh_axis)
+        return type(pyr)(pyr.ll.full_tensor(),
+                         tuple(tuple(b.full_tensor() for b in lvl) for lvl in pyr.details))
+
     def _transform_with_retry(self, batch_np: np.ndarray, key: ExecKey, dev):
         """Bounded-backoff retry around the batched transform; the device
         batch is rebuilt from the host batch on every attempt."""
@@ -245,7 +274,7 @@ class WaveletServeEngine:
         for attempt in range(attempts):
             try:
                 inject.check("serve.transform")
-                out = self.executor.transform(torch.from_numpy(batch_np).to(dev), key)
+                out = self._transform(batch_np, key, dev)
             except Exception as e:  # noqa: BLE001 - transient device faults
                 if attempt + 1 >= attempts:
                     obs.counter("serve.retries_exhausted").inc()

@@ -1,18 +1,28 @@
-"""Cross-pod gradient sync through the integer-DWT codec: the configuration,
-the routing rule and the byte accounting.
+"""Cross-pod gradient synchronisation through the integer-DWT codec.
 
-Port of the accounting half of ``repro.train.grad_compress``.  The codec
-(``mode="bands"``, the production default) ships every wavelet band,
-integer-quantized: approx at int16, details at int8 after a per-band
-arithmetic right shift (``core/compression.py``).  ``mode="lowband"``
-(kept for ablation) ships only the approximation band.
+Port of ``repro.train.grad_compress``.  The codec (``mode="bands"``, the
+production default) ships every wavelet band, integer-quantized: approx
+at int16, details at int8 after a per-band arithmetic right shift
+(``core/compression.py``).  ``mode="lowband"`` (kept for ablation) ships
+only the approximation band.
 
-Not ported yet: ``pod_sync_tree`` and its ring exchange.  The reference
-runs them inside ``shard_map`` over the ``pod`` mesh axis (``ppermute``
-hops with int32 accumulation, ``pmax`` of the scales and shifts); the
-port gets them with the sharded transform and ``torch.distributed``
-collectives (ROADMAP.md Queue 1 item 8).  What is here is host math over
-shapes and, for :func:`pod_encoded_bytes`, the codec on each leaf's own
+:func:`pod_sync_tree` averages a tree of pod-local gradients over the
+``pod`` axis of a device mesh.  The reference runs it inside
+``shard_map`` (``ppermute`` hops, ``pmax`` / ``pmean`` / ``psum``); torch
+has no ambient ``shard_map``, so the port takes the mesh explicitly and
+every rank calls it in step.  The collectives go through
+``repro_torch.collectives.AxisComm``: the ring is n-1 point-to-point
+hops of the quantized payload in its own dtype (int16 / int8 on the
+wire, accumulated locally in int32), ``pmax`` is ``all_reduce(MAX)`` of
+each leaf's scale and band shifts, ``pmean`` ``all_reduce(SUM)`` / n.
+The new error feedback ``g32 - own`` is rounded once
+(``compression.residual_fused``), as the reference's compiled program
+computes it.
+Each leaf's transform runs where the leaf lives: the port's kernels on
+the card, their plain versions on the CPU.
+
+:func:`pod_collective_bytes` and :func:`pod_encoded_bytes` account the
+wire bytes: host math over shapes, and the codec on each leaf's own
 device.
 """
 from __future__ import annotations
@@ -22,6 +32,7 @@ from dataclasses import dataclass
 from typing import Any, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as T
 from repro_torch.core import compression as C
@@ -53,6 +64,26 @@ def init_error_feedback(params: PyTree) -> PyTree:
     """float32 zeros shaped like every leaf, on the leaf's device."""
     return T.map_leaves(
         lambda p: torch.zeros(tuple(p.shape), dtype=torch.float32, device=p.device), params)
+
+
+def _ring_sum(x: torch.Tensor, comm, n: int) -> torch.Tensor:
+    """Sum x across the axis with n-1 ring hops (wire = payload dtype,
+    accumulation in int32)."""
+    acc = x.to(torch.int32)
+    send = x
+    for _ in range(n - 1):
+        send = comm.shift(send)
+        acc = acc + send.to(torch.int32)
+    return acc
+
+
+def _tree_pmax(shifts, comm):
+    """Element-wise max across the axis of a tree of 0-dim tensors (one
+    all_reduce for the whole tree)."""
+    leaves = T.leaves(shifts)
+    got = comm.all_reduce(torch.stack([s.reshape(()) for s in leaves]),
+                          dist.ReduceOp.MAX, op="pmax")
+    return T.unflatten(shifts, list(got.unbind(0)))
 
 
 def _can_2d(g, levels: int) -> bool:
@@ -96,6 +127,101 @@ def leaf_route(p, cfg: WaveletSyncConfig) -> str:
     if cfg.spatial_2d and _can_2d(p, cfg.levels):
         return "2d"
     return "1d"
+
+
+def _sync_leaf_2d(g, g32, scale, cfg: WaveletSyncConfig, comm, n_pods: int):
+    """Band sync for one matrix-shaped leaf through the 2-D pyramid codec."""
+    pyr = C.forward_pyramid_2d(g32, scale, cfg.levels, cfg.mode, scheme=cfg.scheme)
+    shifts = _tree_pmax(C.pyramid2d_shifts(pyr), comm)
+    ll_q, details_q = C.quantize_pyramid_2d(pyr, shifts)
+    sum_ll = _ring_sum(ll_q, comm, n_pods)
+    sum_det = tuple(tuple(_ring_sum(b, comm, n_pods) for b in lvl) for lvl in details_q)
+    g_sync = C.divide_f32(C.decompress_pyramid_2d(
+        sum_ll, sum_det, shifts, scale, cfg.mode, scheme=cfg.scheme), float(n_pods))
+    own = C.reconstruct_pyramid_2d(
+        ll_q.to(torch.int32), C._as_i32(details_q), shifts, cfg.mode, scheme=cfg.scheme)
+    return g_sync.to(g.dtype), C.residual_fused(g32, own, scale)
+
+
+def _sync_leaf_nd(g, g32, scale, cfg: WaveletSyncConfig, comm, n_pods: int):
+    """Band sync for one volume-shaped leaf through the 3-D pyramid codec."""
+    pyr = C.forward_pyramid_nd(g32, scale, cfg.levels, cfg.mode, scheme=cfg.scheme, ndim=3)
+    shifts = _tree_pmax(C.pyramid_nd_shifts(pyr), comm)
+    a_q, details_q = C.quantize_pyramid_nd(pyr, shifts)
+    sum_a = _ring_sum(a_q, comm, n_pods)
+    sum_det = tuple(tuple(_ring_sum(b, comm, n_pods) for b in lvl) for lvl in details_q)
+    g_sync = C.divide_f32(C.decompress_pyramid_nd(
+        sum_a, sum_det, shifts, scale, cfg.mode, scheme=cfg.scheme), float(n_pods))
+    own = C.reconstruct_pyramid_nd(
+        a_q.to(torch.int32), C._as_i32(details_q), shifts, cfg.mode, scheme=cfg.scheme)
+    return g_sync.to(g.dtype), C.residual_fused(g32, own, scale)
+
+
+def _sync_leaf_1d(g, g32, scale, cfg: WaveletSyncConfig, comm, n_pods: int):
+    """Band sync for one leaf through the last-axis 1-D codec."""
+    pyr = C.forward_bands_nd(g32, scale, cfg.levels, cfg.mode, scheme=cfg.scheme)
+    shifts = _tree_pmax(C.pyramid_shifts(pyr), comm)
+    approx_q, details_q = C.quantize_pyramid(pyr, shifts)
+    sum_a = _ring_sum(approx_q, comm, n_pods)
+    sum_d = tuple(_ring_sum(d, comm, n_pods) for d in details_q)
+    shape_nd = tuple(g32.shape) if g32.ndim > 0 else (1,)
+    g_sync = C.divide_f32(C.decompress_bands_nd(
+        sum_a, sum_d, shifts, scale, shape_nd, cfg.mode, scheme=cfg.scheme), float(n_pods))
+    own = C.reconstruct_bands_nd(
+        approx_q.to(torch.int32), tuple(d.to(torch.int32) for d in details_q), shifts,
+        shape_nd, cfg.mode, scheme=cfg.scheme)
+    return g_sync.reshape(g.shape).to(g.dtype), C.residual_fused(g32, own.reshape(g.shape),
+                                                                 scale)
+
+
+def _sync_leaf_lowband(g, g32, scale, cfg: WaveletSyncConfig, comm, n_pods: int):
+    """The ablation codec: only the approximation band, summed."""
+    approx, _details, n = C.forward_bands(g32, scale, cfg.levels, cfg.mode, scheme=cfg.scheme)
+    low_sum = comm.all_reduce(approx, op="psum")
+    band = C.CompressedBand(low_sum, scale, n, cfg.levels)
+    g_sync = C.divide_f32(C.decompress_lowband(band, g.shape, cfg.mode, scheme=cfg.scheme),
+                          float(n_pods))
+    own = C.reconstruct_lowband(C.CompressedBand(approx, scale, n, cfg.levels), g.shape,
+                                cfg.mode, scheme=cfg.scheme)
+    return g_sync.to(g.dtype), C.residual_fused(g32, own, scale)
+
+
+_SYNC = {"lowband": _sync_leaf_lowband, "3d": _sync_leaf_nd, "2d": _sync_leaf_2d,
+         "1d": _sync_leaf_1d}
+
+
+def pod_sync_tree(grads: PyTree, err: PyTree, cfg: WaveletSyncConfig, axis_name: str = "pod",
+                  mesh=None) -> Tuple[PyTree, PyTree]:
+    """All-reduce pod-local ``grads`` over ``mesh[axis_name]`` through the
+    integer-DWT codec.  Every rank of the axis calls it in step with its
+    own gradients and error feedback (``err``, float32, shaped like each
+    leaf).  Returns ``(synced_grads, new_error_feedback)``."""
+    from repro_torch.collectives import AxisComm
+
+    if mesh is None:
+        raise ValueError("pod_sync_tree needs the device mesh whose axis it syncs over (mesh=)")
+    comm = AxisComm(mesh, axis_name)
+    n_pods = cfg.n_pods
+    if comm.size != n_pods:
+        raise ValueError(f"cfg.n_pods={n_pods} but mesh axis {axis_name!r} has {comm.size} ranks")
+
+    def sync_leaf(g, e):
+        route = leaf_route(g, cfg)  # the shared routing rule (below)
+        if route == "raw":
+            pmean = C.divide_f32(comm.all_reduce(g.to(torch.float32)), float(n_pods))
+            return (pmean.to(g.dtype),
+                    torch.zeros(tuple(g.shape), dtype=torch.float32, device=g.device))
+        g32 = g.to(torch.float32) + e
+        # shared quantization scale (the band shifts follow per route)
+        scale = comm.all_reduce(C.tensor_scale(g32), dist.ReduceOp.MAX, op="pmax")
+        return _SYNC[route](g, g32, scale, cfg, comm, n_pods)
+
+    flat_g = T.leaves(grads)
+    flat_e = T.leaves(err)
+    if len(flat_e) != len(flat_g):
+        raise ValueError(f"err has {len(flat_e)} leaves for {len(flat_g)} gradients")
+    out = [sync_leaf(g, e) for g, e in zip(flat_g, flat_e)]
+    return T.unflatten(grads, [o[0] for o in out]), T.unflatten(grads, [o[1] for o in out])
 
 
 def _lowband_bytes(n: int, levels: int) -> int:

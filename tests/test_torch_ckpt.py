@@ -310,6 +310,25 @@ def test_straggler_watchdog_and_device_move():
     assert moved["a"][0].device.type == "cpu"
 
 
+@pytest.mark.sharded
+def test_reshard_to_mesh_places_a_host_tree_on_two_ranks(tmp_path):
+    """The elastic-restart placement: numpy leaves onto a 2-rank mesh from
+    ``sharding.tree_shardings`` pairs, each rank holding its own rows."""
+    from torch_dist_ranks import run_world
+
+    rng = np.random.default_rng(3)
+    w = rng.normal(size=(8, 6)).astype(np.float32)
+    b = rng.normal(size=(6,)).astype(np.float32)
+    np.savez(tmp_path / "inputs.npz", w=w, b=b)
+    outs = run_world("reshard", 2, tmp_path)
+    for r, out in enumerate(outs):
+        np.testing.assert_array_equal(out["w_local"], w[4 * r:4 * r + 4])  # batch over data
+        np.testing.assert_array_equal(out["b_local"], b)  # embed replicated (no fsdp)
+        np.testing.assert_array_equal(out["w_full"], w)
+        assert str(out["w_placements"]) == "(Shard(dim=0),)"
+        assert str(out["b_placements"]) == "(Replicate(),)"
+
+
 def test_jax_state_restores_into_the_port(tmp_path):
     """A jax-array tree saved by the reference restores in the port with
     the template's structure, bfloat16 kept."""

@@ -940,3 +940,91 @@ def test_cuda_filterbank_wrapper_launches_the_kernel(cuda_device, monkeypatch):
         TK.filterbank53_fwd_float(x[..., :2])
     with pytest.raises(TypeError):
         TK.filterbank53_fwd_float(x.to(torch.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 0), (0, 0), (3, 0), (1, 0, 4, 4), (2, 4, 4, 0)], ids=str)
+def test_cuda_zero_length_axes_at_levels_0(shape, cuda_device):
+    """A zero-length axis at ``levels=0``: the identity pyramid on the
+    card, as on the CPU (the port once raised on a ``reshape(-1, 0)``)."""
+    x = torch.zeros(shape, dtype=torch.int32, device=cuda_device)
+    for checked in (False, True):
+        pyr = TK.dwt_fwd(x, levels=0, checked=checked)
+        assert pyr.details == () and torch.equal(pyr.approx, x)
+        assert torch.equal(TK.dwt_inv(pyr, checked=checked), x)
+        if len(shape) >= 3:
+            p3 = TK.dwt_fwd_nd(x, levels=0, checked=checked)
+            assert p3.details == () and torch.equal(TK.dwt_inv_nd(p3, checked=checked), x)
+
+
+@pytest.fixture
+def nccl_world(cuda_device, tmp_path):
+    """A one-rank NCCL world on the card (one GPU admits one NCCL rank)."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'rendezvous'}",
+                            world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme,mode", [("cdf53", "jpeg2000"), ("97m", "paper"),
+                                         ("haar", "paper")])
+def test_cuda_sharded_one_rank_nccl_equals_the_single_device_pyramid(scheme, mode, nccl_world):
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.collectives import AxisComm
+    from repro_torch.launch.mesh import make_mesh_compat
+
+    mesh = make_mesh_compat((1,), ("data",))
+    assert AxisComm(mesh, "data").route(torch.device("cuda")) == "nccl"
+    x = torch.from_numpy(_img(np.random.default_rng(8), (2, 256, 200))).cuda()
+    TK.launches.reset()
+    pyr = TK.dwt_fwd_2d_sharded(x.cpu(), mesh, levels=3, mode=mode, scheme=scheme,
+                                timeout_s=60.0)
+    back = TK.dwt_inv_2d_sharded(pyr, mesh, mode=mode, scheme=scheme)
+    counts = TK.launches.snapshot()
+    assert counts.get("whole2d_fwd", 0) + counts.get("tiled2d_fwd", 0) >= 3, counts
+    want = TK.dwt_fwd_2d_multi(x, levels=3, mode=mode, scheme=scheme)
+    got = [pyr.ll] + [b for lvl in pyr.details for b in lvl]
+    for g, w in zip(got, [want.ll] + [b for lvl in want.details for b in lvl]):
+        assert isinstance(g, DTensor) and g.to_local().is_cuda
+        assert torch.equal(g.full_tensor(), w)
+    assert torch.equal(back.full_tensor(), x)
+
+
+@pytest.mark.cuda
+def test_cuda_pod_sync_one_rank_nccl_equals_the_cpu_codec(nccl_world):
+    """With one pod the sync is the codec's round trip: the card's synced
+    leaves and error feedback equal the same math on the CPU."""
+    from repro_torch.core import compression as TCMP
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.train import grad_compress as TG
+
+    mesh = make_mesh_compat((1,), ("pod",))
+    rng = np.random.default_rng(9)
+    tree = {"w": rng.normal(size=(64, 96)), "act": rng.normal(size=(6, 16, 24)),
+            "v": rng.normal(size=(8000,)), "b": rng.normal(size=(100,))}
+    tree = {k: torch.from_numpy(v.astype(np.float32)) for k, v in tree.items()}
+    cfg = TG.WaveletSyncConfig(n_pods=1, min_size=256, spatial_2d=True, spatial_3d=True)
+    dev = {k: v.cuda() for k, v in tree.items()}
+    synced, err = TG.pod_sync_tree(dev, TG.init_error_feedback(dev), cfg, mesh=mesh)
+    assert {k: TG.leaf_route(v, cfg) for k, v in tree.items()} == {
+        "w": "2d", "act": "3d", "v": "1d", "b": "raw"}
+    want = {"w": TCMP.band_quantized_roundtrip_2d(tree["w"], 2)[0],
+            "act": TCMP.band_quantized_roundtrip_nd(tree["act"], 2)[0],
+            "b": tree["b"]}
+    for k, w in want.items():
+        assert torch.equal(synced[k].cpu(), w), k
+    assert torch.equal(err["b"].cpu(), torch.zeros(100))
+    v = tree["w"]  # the 2-D leaf's error feedback, by the CPU codec's steps
+    scale = TCMP.tensor_scale(v)
+    pyr = TCMP.forward_pyramid_2d(v, scale, 2)
+    shifts = TCMP.pyramid2d_shifts(pyr)
+    ll_q, det_q = TCMP.quantize_pyramid_2d(pyr, shifts)
+    own = TCMP.reconstruct_pyramid_2d(ll_q.to(torch.int32), TCMP._as_i32(det_q), shifts)
+    assert torch.equal(err["w"].cpu(), TCMP.residual_fused(v, own, scale))

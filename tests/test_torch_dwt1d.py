@@ -390,3 +390,37 @@ def test_dwt53_1d_aliases_pass_checked_through(name, monkeypatch):
             [want.approx, *want.details] if hasattr(want, "approx") else list(want)
         for a, b in zip(got_leaves, want_leaves, strict=True):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+F1_SHAPES = [(2, 0), (0, 0), (3, 0), (1, 0, 4, 4), (2, 4, 4, 0)]
+
+
+def _outcome(fn):
+    """(exception class name, message), or ("ok", the band shapes)."""
+    try:
+        pyr = fn()
+    except Exception as e:  # noqa: BLE001  the class and message are compared
+        return type(e).__name__, str(e)
+    return "ok", [tuple(b.shape) for b in (pyr.approx,) + tuple(pyr.details)]
+
+
+@pytest.mark.parametrize("checked", [False, True])
+@pytest.mark.parametrize("shape", F1_SHAPES, ids=str)
+def test_zero_length_axes_at_levels_0_equal_the_reference(shape, checked):
+    """A zero-length axis at ``levels=0`` is the identity pyramid and its
+    inverse the input, in both packages (the port once raised on a
+    ``reshape(-1, 0)``); at ``levels >= 1`` both raise the same
+    ``ValueError`` where the last axis is empty."""
+    x = np.zeros(shape, np.int32)
+    want = RK.dwt_fwd(x, levels=0, checked=checked)
+    got = TK.dwt_fwd(torch.from_numpy(x), levels=0, checked=checked)
+    assert len(got.details) == len(want.details) == 0
+    assert got.approx.dtype == torch.int32
+    np.testing.assert_array_equal(got.approx.numpy(), np.asarray(want.approx))
+    back = TK.dwt_inv(got, checked=checked)
+    np.testing.assert_array_equal(back.numpy(), np.asarray(RK.dwt_inv(want, checked=checked)))
+    assert tuple(back.shape) == shape
+    for levels in (1, 2):
+        r = _outcome(lambda: RK.dwt_fwd(x, levels=levels))
+        t = _outcome(lambda: TK.dwt_fwd(torch.from_numpy(x), levels=levels))
+        assert r == t and (r[0] == "ValueError") == (shape[-1] == 0)

@@ -54,7 +54,9 @@ def test_the_scan_sees_every_port_module():
                  "src/repro_torch/core/pe.py", "src/repro_torch/kernels/filterbank.py",
                  "src/repro_torch/timing.py", "benchmarks/torch_table2_opcounts.py",
                  "benchmarks/torch_table3_timing.py", "benchmarks/torch_fig5_lossless.py",
-                 "benchmarks/torch_run.py"):
+                 "benchmarks/torch_run.py", "src/repro_torch/kernels/sharded.py",
+                 "src/repro_torch/sharding.py", "src/repro_torch/launch/mesh.py",
+                 "src/repro_torch/collectives.py"):
         assert must in names
 
 
@@ -72,7 +74,8 @@ def test_fresh_interpreter_imports_the_port_without_jax():
         "repro_torch.ckpt, repro_torch.train.grad_compress, repro_torch.core.opcount, "
         "repro_torch.core.pe, repro_torch.timing, benchmarks.torch_run, "
         "benchmarks.torch_table2_opcounts, benchmarks.torch_table3_timing, "
-        "benchmarks.torch_fig5_lossless; "
+        "benchmarks.torch_fig5_lossless, repro_torch.kernels.sharded, repro_torch.sharding, "
+        "repro_torch.launch.mesh, repro_torch.collectives; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'));"
         "print(bad); sys.exit(1 if bad else 0)"
     )

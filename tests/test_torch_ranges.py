@@ -364,9 +364,6 @@ BY_DESIGN_ABSENT = {
     # the dispatch convention: the tensor's device is the whole choice
     "VALID_BACKENDS", "BackendDegradeWarning", "default_backend", "has_compiled_pallas",
     "platform", "resolve", "resolve_backend", "use_backend",
-    # the sharded transform (ROADMAP Queue 1 item 8)
-    "dwt_fwd_2d_sharded", "dwt_inv_2d_sharded", "dwt53_fwd_2d_sharded",
-    "dwt53_inv_2d_sharded",
 }
 
 

@@ -101,22 +101,74 @@ def test_default_engine_refuses_to_serve_without_a_card():
     assert eng.scheduler.pending() == 1 and not req.done  # nothing lost
 
 
+MESH = object()  # stands for a real one-rank mesh where the engine needs one
+
+
+@pytest.fixture(scope="module")
+def one_rank_mesh(tmp_path_factory):
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh_compat
+
+    init = tmp_path_factory.mktemp("rendezvous") / "file"
+    dist.init_process_group("gloo", init_method=f"file://{init}", world_size=1, rank=0)
+    try:
+        yield make_mesh_compat((1,), ("data",), "cpu")
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize(
     "kwargs,item",
     [
-        (dict(buckets=[(4, 16, 16)], mesh=object()), "sharded"),
-        (dict(height=16, width=16, depth=4, mesh=object()), "sharded"),
-        (dict(buckets=BUCKETS, mesh=object()), "sharded"),
+        (dict(buckets=[(4, 16, 16)], mesh=MESH), "sharded"),
+        (dict(height=16, width=16, depth=4, mesh=MESH), "sharded"),
+        (dict(buckets=BUCKETS, mesh=MESH), "sharded"),
     ],
 )
-def test_unported_routes_raise_naming_the_roadmap_item(kwargs, item):
-    """The sharded route (``mesh=``) is the one route left unported, for
-    2-D and volume buckets alike; volume buckets alone now construct."""
-    with pytest.raises(NotImplementedError, match=item):
-        WaveletServeEngine(device="cpu", **kwargs)
+def test_unported_routes_raise_naming_the_roadmap_item(kwargs, item, one_rank_mesh):
+    """The sharded route (``mesh=``), ported: volume buckets with a mesh
+    raise the reference's ``ValueError`` (the route is 2-D only); 2-D
+    buckets with a mesh construct and serve the mesh-less engine's
+    pyramids and WZRC bytes."""
     rest = {k: v for k, v in kwargs.items() if k != "mesh"}
     if rest.get("buckets") != BUCKETS:
+        with pytest.raises(ValueError, match="2D-only") as port:
+            WaveletServeEngine(device="cpu", mesh=one_rank_mesh, **rest)
+        with pytest.raises(ValueError, match="2D-only") as ref:
+            RSV.WaveletServeEngine(mesh=object(), **rest)
+        assert str(port.value) == str(ref.value) and item in str(port.value)
         WaveletServeEngine(device="cpu", **rest)
+        return
+    engines = [WaveletServeEngine(device="cpu", encode_response=True, mesh=m, **rest)
+               for m in (one_rank_mesh, None)]
+    assert engines[0].warmup() == len(BUCKETS)
+    done = [eng.run(_requests(TSV)) for eng in engines]
+    assert len(done[0]) == len(done[1]) == 10
+    for a, b in zip(*done):
+        assert a.uid == b.uid and a.encoded == b.encoded and a.batch_index == b.batch_index
+        for x, y in zip(_leaves(a.pyramid), _leaves(b.pyramid)):
+            assert not hasattr(x, "placements") and torch.equal(x, y)
+    with pytest.raises(ValueError, match="divisible"):  # check_shardable at construction
+        WaveletServeEngine(device="cpu", mesh=one_rank_mesh, buckets=[(12, 16)], levels=3)
+
+
+def _leaves(pyr):
+    return [pyr.ll] + [b for lvl in pyr.details for b in lvl]
+
+
+def test_mesh_signature_matches_reference(one_rank_mesh):
+    from jax.sharding import Mesh
+
+    ref = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+    from repro_torch.launch.mesh import make_mesh_compat
+
+    port = make_mesh_compat((1, 1), ("data", "model"), "cpu")
+    assert TSV.mesh_signature(port) == RSV.mesh_signature(ref) == (("data", 1), ("model", 1))
+    assert TSV.mesh_signature(one_rank_mesh) == (("data", 1),)
+    assert TSV.mesh_signature(None) is RSV.mesh_signature(None) is None
+    eng = WaveletServeEngine(device="cpu", mesh=one_rank_mesh, buckets=BUCKETS)
+    assert eng._exec_key(BUCKETS[0]).mesh_axes == (("data", 1),)
 
 
 @pytest.mark.parametrize("scheme,mode", [("cdf53", "jpeg2000"), ("97m", "paper")])

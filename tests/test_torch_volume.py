@@ -272,3 +272,35 @@ def test_checked_3d_stepping_runs_through_the_volume_engine():
     with pytest.raises(IntegerOverflowError):
         TK.dwt_fwd_nd(torch.full((1, 4, 4, 4), int(I32.max), dtype=torch.int32), levels=1,
                       checked=True)
+
+
+@pytest.mark.parametrize("checked", [False, True])
+@pytest.mark.parametrize("shape", [(1, 0, 4, 4), (2, 4, 4, 0), (0, 3, 4, 5)], ids=str)
+def test_nd_zero_length_axes_at_levels_0_equal_the_reference(shape, checked):
+    """``dwt_fwd_nd`` / ``dwt_inv_nd`` at ``levels=0`` on a zero-length
+    axis return the identity pyramid and the input, as the reference
+    does (the port once raised on a ``reshape(-1, ...)``); at ``levels >=
+    1`` both raise the same ``ValueError`` where a volume axis is empty;
+    under 3 axes both refuse."""
+    x = np.zeros(shape, np.int32)
+    want = RK.dwt_fwd_nd(x, levels=0, checked=checked)
+    got = TK.dwt_fwd_nd(torch.from_numpy(x), levels=0, checked=checked)
+    assert len(got.details) == len(want.details) == 0
+    np.testing.assert_array_equal(got.approx.numpy(), np.asarray(want.approx))
+    back = TK.dwt_inv_nd(got, checked=checked)
+    np.testing.assert_array_equal(back.numpy(), np.asarray(RK.dwt_inv_nd(want, checked=checked)))
+    assert tuple(back.shape) == shape and back.dtype == torch.int32
+    for levels in (1, 2):
+        if 0 not in shape[-3:]:  # an empty batch of valid volumes transforms
+            got = TK.dwt_fwd_nd(torch.from_numpy(x), levels=levels)
+            want = RK.dwt_fwd_nd(x, levels=levels)
+            assert tuple(got.approx.shape) == np.asarray(want.approx).shape
+            continue
+        with pytest.raises(ValueError, match="too small") as port:
+            TK.dwt_fwd_nd(torch.from_numpy(x), levels=levels)
+        with pytest.raises(ValueError, match="too small") as ref:
+            RK.dwt_fwd_nd(x, levels=levels)
+        assert str(port.value) == str(ref.value)
+    for flat in ((2, 0), (0, 0), (3, 0)):
+        with pytest.raises(ValueError, match="need >= 3 axes"):
+            TK.dwt_fwd_nd(torch.zeros(flat, dtype=torch.int32), levels=0)
