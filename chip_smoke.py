@@ -136,12 +136,12 @@ Phases (any failure raises and the script exits nonzero):
    request, its events, device and host time as one launch), for each slab level which plane path ran and the device ms of each
    kernel it launched (``torch.profiler``), for each whole-volume level
    its device ms, the host's us per wrapper call and the cluster size.
-10. Checkpoints: stablelm-2-1.6b at full width (``src/repro/configs/
-   stablelm_1_6b.py``: d_model 2048, 32 heads of 64, d_ff 5632, vocab
-   100,352, LayerNorm scale and bias, swiglu, untied head; the
-   parameter tree of ``repro.models.transformer.model_defs`` written out
-   here), depth cut from 24 to 4 layers, bfloat16, normal(0, 0.02) from
-   ``--seed``.  With the counters reset just before and read just after,
+10. Checkpoints: stablelm-2-1.6b at full width (``repro_torch.configs``:
+   d_model 2048, 32 heads of 64, d_ff 5632, vocab 100,352, LayerNorm
+   scale and bias, swiglu, untied head; the parameter tree of
+   ``repro_torch.models.transformer.model_defs``), depth cut from 24 to
+   4 layers, bfloat16, normal(0, 0.02) from ``--seed`` (scales ones,
+   biases zeros).  With the counters reset just before and read just after,
    and the plain-version guard (1-D, 2-D and 3-D plain versions, the Rice
    coder's): the tree saved once with each codec (raw, z, wz, wz2d,
    wz3d, wz-rice; cdf53, 2 levels; and wz with cdf22) through
@@ -203,10 +203,29 @@ Phases (any failure raises and the script exits nonzero):
    with them off: ring bytes per hop equal to ``pod_collective_bytes``'
    payload, the smallest leaf of each route equal to the same sync on
    the CPU, ms per route.
-13. Print the ``{"kernels": [...]}`` line (each kernel with its launches
-   on the checkpoint path and on the sharded paths too; the float
-   kernel's from phase 11, its times at (a)), the card line, and last the
-   ``{"ok": true, ...}`` line.  ``--json-out PATH`` also writes the whole
+13. LM serving, with the counters reset just before and read just after:
+   (a) ``serve.ServeEngine`` on stablelm-2-1.6b at full width and full
+   depth (24 layers, bfloat16, ``models.layers.init_params`` from
+   ``--seed`` on the card), 4 slots, ``prefill_len`` 128, 8 greedy
+   requests with prompts of 16-128 tokens and ``max_new`` 8: every
+   request finishes with in-vocabulary tokens; a decode step after a
+   prefill of 127 tokens must match a prefill of 128 at the last
+   position (relative Frobenius distance of the logits at most 0.1);
+   prefill and decode-step ms (CUDA events), tokens/s and
+   ``max_memory_allocated``.  (b) One config per family at full width,
+   depth cut (``LM_FAMILIES``: stablelm-1.6b 2 layers, phi3.5-moe 1,
+   rwkv6-7b 2, recurrentgemma-2b 4 = one super layer and a trailing rec
+   layer, musicgen-medium 2 with ``embeds`` input) in float32: forward on
+   one (1, 32) prompt, prefill and 2 decode steps on the card against the
+   same functions on the CPU from the same parameters (max |diff| within
+   2e-3, hybrid 3e-2, of the logits' scale).  (c) ``data.pipeline.
+   WaveletBandSplit`` (cdf53 / paper, 2 levels, 8 x 65,536 16-bit
+   samples) on the card under the plain-version guard: one ``lift1d_fwd``
+   launch, bands equal to the plain version's run on the card.
+14. Print the ``{"kernels": [...]}`` line (each kernel with its launches
+   on the checkpoint path, on the sharded paths and on the LM path too;
+   the float kernel's from phase 11, its times at (a)), the card line,
+   and last the ``{"ok": true, ...}`` line.  ``--json-out PATH`` also writes the whole
    record (every batch latency, every level's, band's and shape's time)
    to PATH.
 """
@@ -2143,10 +2162,9 @@ def time_3d(rng, dev) -> list:
 # Phase 10: checkpoints of a full-width stablelm-2-1.6b.
 # ---------------------------------------------------------------------------
 
-# src/repro/configs/stablelm_1_6b.py at full width; depth cut from 24 to 4
-# layers, the least at which the stacked leaves take the 3-D route (each
+# stablelm-2-1.6b (repro_torch.configs) at full width; depth cut from 24 to
+# 4 layers, the least at which the stacked leaves take the 3-D route (each
 # of the three trailing dims >= 4)
-STABLELM = {"d_model": 2048, "n_heads": 32, "head_dim": 64, "d_ff": 5632, "vocab": 100352}
 CKPT_LAYERS = 4
 # (codec, scheme), each on the whole tree
 CKPT_CODECS = (("raw", "cdf53"), ("z", "cdf53"), ("wz", "cdf53"), ("wz2d", "cdf53"),
@@ -2158,52 +2176,38 @@ PLAN_KERNELS = {("1d", "windowed-cuda"): "lift1d", ("1d", "policy-cuda"): "lift1
                 ("3d", "slab-cuda"): "slab3d"}
 
 
-@dataclasses.dataclass
-class ParamSpec:
-    shape: tuple
-    init: str  # normal | ones | zeros
+def stablelm_defs(layers: int = CKPT_LAYERS) -> dict:
+    """The ``ParamDef`` tree of stablelm-2-1.6b at full width and
+    ``layers`` layers (``repro_torch.models.transformer.model_defs``:
+    stacked layers, LayerNorm scale and bias, swiglu, untied head)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TF
+
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"), n_layers=layers)
+    return TF.model_defs(cfg)
 
 
-def stablelm_spec(layers: int = CKPT_LAYERS) -> dict:
-    """The parameter tree of ``repro.models.transformer.model_defs`` for
-    stablelm-2-1.6b (scan-over-layers stacks, LayerNorm scale and bias,
-    swiglu, untied head), written out: this script imports no ``repro``."""
-    d, h, hd, f, v = (STABLELM[k] for k in ("d_model", "n_heads", "head_dim", "d_ff", "vocab"))
-
-    def norm(*lead):
-        return {"scale": ParamSpec(lead + (d,), "ones"), "bias": ParamSpec(lead + (d,), "zeros")}
-
-    return {
-        "embed": {"embedding": ParamSpec((v, d), "normal")},
-        "layers": {
-            "ln1": norm(layers),
-            "attn": {"wq": ParamSpec((layers, d, h, hd), "normal"),
-                     "wk": ParamSpec((layers, d, h, hd), "normal"),
-                     "wv": ParamSpec((layers, d, h, hd), "normal"),
-                     "wo": ParamSpec((layers, h, hd, d), "normal")},
-            "ln2": norm(layers),
-            "mlp": {"w_gate": ParamSpec((layers, d, f), "normal"),
-                    "w_up": ParamSpec((layers, d, f), "normal"),
-                    "w_down": ParamSpec((layers, f, d), "normal")},
-        },
-        "ln_f": norm(),
-        "head": {"w_out": ParamSpec((d, v), "normal")},
-    }
+def fill_kind(defn) -> str:
+    """How phase 10 fills a leaf: normal(0, 0.02) for matrices and the
+    embedding, ones for scales, zeros for biases."""
+    return "normal" if defn.init in ("normal", "embed") else defn.init
 
 
 def stablelm_params(rng, dev, layers: int = CKPT_LAYERS) -> dict:
     """bfloat16 parameters on the card: normal(0, 0.02) matrices from
-    ``rng`` (numpy), ones for scales, zeros for biases."""
+    ``rng`` (numpy), ones for scales, zeros for biases, in the tree's leaf
+    order."""
     from repro_torch import tree as T
 
-    def make(spec):
-        if spec.init == "normal":
-            host = rng.standard_normal(spec.shape, dtype=np.float32)
+    def make(defn):
+        kind = fill_kind(defn)
+        if kind == "normal":
+            host = rng.standard_normal(defn.shape, dtype=np.float32)
             return torch.from_numpy(host).to(dev).mul_(0.02).to(torch.bfloat16)
-        fill = torch.ones if spec.init == "ones" else torch.zeros
-        return fill(spec.shape, dtype=torch.bfloat16, device=dev)
+        fill = torch.ones if kind == "ones" else torch.zeros
+        return fill(defn.shape, dtype=torch.bfloat16, device=dev)
 
-    return T.map_leaves(make, stablelm_spec(layers))
+    return T.map_leaves(make, stablelm_defs(layers))
 
 
 class StageTimer:
@@ -3060,7 +3064,7 @@ def pod_tree(rank: int, seed: int, dev, layers: int) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(1000 * seed + rank)
     return T.map_leaves(lambda s: torch.randn(s.shape, generator=gen, device=dev).mul_(1e-3),
-                        stablelm_spec(layers))
+                        stablelm_defs(layers))
 
 
 def _ring_bytes() -> int:
@@ -3206,6 +3210,247 @@ def print_sharded(sp: dict, card: str) -> None:
                   f"from the mean" for k, v in r["routes"].items())
               + f"; launches {r['launches']} ({card})")
     print(f"pod sync: {ps['s']:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: LM serving.
+# ---------------------------------------------------------------------------
+
+# (a) stablelm-2-1.6b (repro_torch.configs) at full width and full depth,
+# bfloat16, init_params from --seed on the card
+LM_ARCH = "stablelm-1.6b"
+LM_SLOTS, LM_PREFILL, LM_MAX_NEW, LM_REQUESTS = 4, 128, 8, 8
+LM_PROMPT_LENS = (16, 128)  # each request's prompt length, drawn in [16, 128]
+# decode after a prefill of LM_CHECK_LEN tokens against a prefill of one
+# more (the reference's test_decode_matches_forward_dense, at full width),
+# 2 sequences; bound: the logits' relative Frobenius distance.  The two
+# paths run bfloat16 GEMMs of other shapes (2 rows against 256), whose
+# sums may round differently, and 24 layers carry it: a bfloat16 model
+# of this depth with every GEMM's rounding changed moves its logits by
+# ~7e-2 (a d_model 512 stand-in on the CPU), a wrong position or cache
+# entry by ~1
+LM_CHECK_LEN, LM_CHECK_BATCH = 127, 2
+LM_DECODE_BOUND = 1e-1
+# (b) one config per family at full width, depth cut (n_layers): dense
+# 24 -> 2, moe 32 -> 1 (16 experts of 3 x 4096 x 6400 are 5 GB a layer in
+# float32, on the card and again on the host), ssm 32 -> 2, hybrid 26 -> 4
+# (one (rec, rec, attn) super layer and one trailing rec layer), audio
+# 48 -> 2 (``embeds`` input).  float32 on the card against the same port
+# functions on the CPU from the same parameters (TF32 off, torch's
+# default): forward on one (1, 32) prompt, prefill, 2 decode steps.
+LM_FAMILIES = (("stablelm-1.6b", 2), ("phi3.5-moe-42b-a6.6b", 1), ("rwkv6-7b", 2),
+               ("recurrentgemma-2b", 4), ("musicgen-medium", 2))
+LM_FAMILY_LEN, LM_FAMILY_DECODES = 32, 2
+# bound: max |card - CPU| <= bound x max(1, max |CPU|) on each logits
+# tensor; the hybrid's RG-LRU cancels in sqrt(1 - a^2), so a one-ulp
+# difference in exp moves it by ~1e-4 relative (tests/test_torch_models.py)
+LM_FAMILY_BOUND = {"hybrid": 3e-2}
+LM_FAMILY_BOUND_DEFAULT = 2e-3
+# (c) the data pipeline's band split on the card
+BAND_SPLIT = {"shape": (8, 65536), "levels": 2, "scheme": "cdf53", "mode": "paper"}
+
+
+def _lm_inputs(cfg, rng, batch: int, length: int) -> dict:
+    """Host tokens (in the vocabulary) or, for the ``embeds`` archs,
+    normal(0, 1) frame embeddings."""
+    if cfg.input_mode == "tokens":
+        return {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (batch, length), dtype=np.int32))}
+    return {"embeds": torch.from_numpy(
+        rng.standard_normal((batch, length, cfg.d_model), dtype=np.float32))}
+
+
+def lm_full_depth(rng, dev, seed: int) -> dict:
+    """Phase 13 (a): the ServeEngine on stablelm-2-1.6b at full size."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as ML
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = get_config(LM_ARCH)
+    torch.zeros(1, device=dev)  # the allocator must exist before its stats are reset
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, init_ms = _timed(
+        lambda: ML.init_params(TF.model_defs(cfg), seed, torch.bfloat16, device=dev), dev)
+    lens = rng.integers(LM_PROMPT_LENS[0], LM_PROMPT_LENS[1] + 1, LM_REQUESTS)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, n, dtype=np.int32),
+                    max_new=LM_MAX_NEW) for i, n in enumerate(lens)]
+    # warm-up (cuBLAS handles and workspaces), then the measured run
+    ServeEngine(cfg, params, LM_SLOTS, LM_PREFILL, device=dev).run(
+        [Request(uid=-1, prompt=reqs[0].prompt, max_new=2)])
+    eng = ServeEngine(cfg, params, LM_SLOTS, LM_PREFILL, device=dev)
+    done, run_ms = _timed(lambda: eng.run(reqs), dev)
+    if sorted(r.uid for r in done) != list(range(LM_REQUESTS)):
+        raise AssertionError(f"served {sorted(r.uid for r in done)} of {LM_REQUESTS} requests")
+    for r in done:
+        if not r.done or len(r.out_tokens) != LM_MAX_NEW or not all(
+                0 <= t < cfg.vocab_size for t in r.out_tokens):
+            raise AssertionError(f"request {r.uid}: {r.out_tokens} (max_new {LM_MAX_NEW}, "
+                                 f"vocabulary {cfg.vocab_size})")
+    tokens = sum(len(r.out_tokens) for r in done)
+
+    one = {"tokens": _lm_inputs(cfg, rng, 1, LM_PREFILL)["tokens"].to(dev)}
+    prefill_ms = _median_ms(lambda: TF.prefill(params, cfg, **one), 5)
+    caches = TF.init_caches(cfg, LM_SLOTS, LM_PREFILL, device=dev)
+    caches["len"] = torch.tensor(LM_PREFILL, dtype=torch.int32, device=dev)
+    step_in = torch.ones((LM_SLOTS, 1), dtype=torch.int32, device=dev)
+    decode_ms = _median_ms(lambda: TF.decode_step(params, cfg, caches, tokens=step_in), 10)
+    # the card's busy time a call (every kernel the profiler records)
+    prefill_dev = _device_ms(lambda: TF.prefill(params, cfg, **one), None, every_kernel=True)
+    decode_dev = _device_ms(lambda: TF.decode_step(params, cfg, caches, tokens=step_in), None,
+                            every_kernel=True)
+
+    toks = _lm_inputs(cfg, rng, LM_CHECK_BATCH, LM_CHECK_LEN + 1)["tokens"].to(dev)
+    _, pre = TF.prefill(params, cfg, tokens=toks[:, :LM_CHECK_LEN])
+    dec, _ = TF.decode_step(params, cfg, pre, tokens=toks[:, LM_CHECK_LEN:])
+    full, _ = TF.prefill(params, cfg, tokens=toks)
+    dec, full = dec[:, 0].float(), full[:, 0].float()
+    dist = ((dec - full).norm() / full.norm()).item()
+    if not torch.isfinite(dec).all() or dist > LM_DECODE_BOUND:
+        raise AssertionError(f"decode after a prefill of {LM_CHECK_LEN} tokens is {dist:.3e} "
+                             f"from a prefill of {LM_CHECK_LEN + 1} (bound {LM_DECODE_BOUND})")
+    out = {"arch": LM_ARCH, "layers": cfg.n_layers, "params": sum(
+        t.numel() for t in T.leaves(params)), "init_ms": init_ms,
+        "requests": len(done), "prompt_lens": [int(n) for n in lens], "tokens": tokens,
+        "run_ms": run_ms, "tokens_per_s": tokens / (run_ms / 1e3),
+        "prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
+        "prefill_device_ms": prefill_dev, "decode_step_device_ms": decode_dev,
+        "decode_tokens_per_s": LM_SLOTS / (decode_ms / 1e3),
+        "decode_vs_prefill": {"rel_frobenius": dist, "bound": LM_DECODE_BOUND,
+                              "max_abs": (dec - full).abs().max().item(),
+                              "scale": full.abs().max().item(),
+                              "top1_agree": (dec.argmax(-1) == full.argmax(-1)).float().mean().item()},
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+    del params, eng, caches, pre
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_families(rng, dev, seed: int) -> dict:
+    """Phase 13 (b): one config per family at full width, the card against
+    the CPU in float32 from the same parameters."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as ML
+    from repro_torch.models import transformer as TF
+
+    cpu = torch.device("cpu")
+    out = {}
+    for arch, layers in LM_FAMILIES:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers, param_dtype="float32",
+                                  compute_dtype="float32")
+        on_card = ML.init_params(TF.model_defs(cfg), seed, torch.float32, device=dev)
+        on_cpu = T.map_leaves(lambda t: t.cpu(), on_card)
+        prompt = _lm_inputs(cfg, rng, 1, LM_FAMILY_LEN)
+        steps = [_lm_inputs(cfg, rng, 1, 1) for _ in range(LM_FAMILY_DECODES)]
+        logits, ms = {}, {}
+        for where, params, d in (("card", on_card, dev), ("cpu", on_cpu, cpu)):
+            def run():
+                def to(kw):
+                    return {k: v.to(d) for k, v in kw.items()}
+                got = [TF.forward(params, cfg, **to(prompt))[0]]
+                lg, caches = TF.prefill(params, cfg, **to(prompt))
+                got.append(lg)
+                for x in steps:
+                    lg, caches = TF.decode_step(params, cfg, caches, **to(x))
+                    got.append(lg)
+                return [g.float().cpu() for g in got]
+            t = time.perf_counter()
+            logits[where] = run()
+            ms[where] = (time.perf_counter() - t) * 1e3
+        bound = LM_FAMILY_BOUND.get(cfg.family, LM_FAMILY_BOUND_DEFAULT)
+        errs = {}
+        names = ["forward", "prefill"] + [f"decode {i + 1}" for i in range(LM_FAMILY_DECODES)]
+        for name, a, b in zip(names, logits["card"], logits["cpu"]):
+            scale = max(1.0, b.abs().max().item())
+            errs[name] = (a - b).abs().max().item() / scale
+            if a.shape != b.shape or not torch.isfinite(a).all() or errs[name] > bound:
+                raise AssertionError(f"{arch} ({layers} layers) {name}: card against CPU "
+                                     f"{errs[name]:.3e} x scale {scale:.3g} (bound {bound})")
+        out[arch] = {"family": cfg.family, "layers": layers, "params": sum(
+            t.numel() for t in T.leaves(on_card)), "rel_max_err": errs, "bound": bound,
+            "card_ms": ms["card"], "cpu_ms": ms["cpu"], "s": time.perf_counter() - t0}
+        del on_card, on_cpu
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_band_split(rng, dev) -> dict:
+    """Phase 13 (c): ``data.pipeline.WaveletBandSplit`` on the card, under
+    the plain-version guard; then its bands against the plain version run
+    on the card."""
+    from repro_torch import kernels as K
+    from repro_torch.core import lifting as CL
+    from repro_torch.data.pipeline import WaveletBandSplit
+
+    bs = BAND_SPLIT
+    x = rng.integers(*PCM16, bs["shape"], dtype=np.int32)
+    stage = WaveletBandSplit(levels=bs["levels"], mode=bs["mode"], scheme=bs["scheme"],
+                             device=dev)
+    before = K.launches.snapshot()
+    with PlainGuard(PlainGuard.TARGETS + PlainGuard.TARGETS_2D) as guard:
+        bands, ms = _timed(lambda: stage(x), dev)
+    launched = {k: v - before.get(k, 0) for k, v in K.launches.snapshot().items()
+                if v - before.get(k, 0)}
+    if guard.calls:
+        raise AssertionError(f"plain versions ran on CUDA tensors in the band split: {guard.calls}")
+    if launched != {"lift1d_fwd": 1}:
+        raise AssertionError(f"the band split launched {launched}, want one lift1d_fwd run")
+    want = CL.dwt_fwd(torch.from_numpy(x).to(dev), levels=bs["levels"], mode=bs["mode"],
+                      scheme=bs["scheme"])
+    pairs = [("approx", want.approx)] + [(f"detail_{i}", d) for i, d in enumerate(want.details)]
+    if sorted(bands) != sorted(k for k, _ in pairs):
+        raise AssertionError(f"band split keys {sorted(bands)}")
+    for k, w in pairs:
+        if not np.array_equal(bands[k], w.cpu().numpy()):
+            raise AssertionError(f"band split {k} != the plain version's")
+    return {"ms": ms, "launches": launched, "bands": {k: list(v.shape) for k, v in bands.items()},
+            **bs}
+
+
+def lm_serving(rng, dev, seed: int) -> dict:
+    """Phase 13: the counters reset just before and read just after."""
+    from repro_torch import kernels as K
+
+    t = time.perf_counter()
+    K.launches.reset()
+    out = {"full_depth": lm_full_depth(rng, dev, seed), "families": lm_families(rng, dev, seed),
+           "band_split": lm_band_split(rng, dev)}
+    out["launches"] = K.launches.snapshot()
+    if out["launches"].get("lift1d_fwd", 0) <= 0:
+        raise AssertionError(f"lift1d never launched on the LM path: {out['launches']}")
+    out["s"] = time.perf_counter() - t
+    return out
+
+
+def print_lm(lm: dict, card: str) -> None:
+    a = lm["full_depth"]
+    cmp = a["decode_vs_prefill"]
+    print(f"LM serving: {a['arch']} at full width and depth ({a['layers']} layers, "
+          f"{a['params']} parameters, bfloat16), {LM_SLOTS} slots, prefill_len {LM_PREFILL}: "
+          f"{a['requests']} requests (prompts {a['prompt_lens']}), {a['tokens']} tokens in "
+          f"{a['run_ms']:.1f} ms, {a['tokens_per_s']:.1f} tokens/s end to end; prefill "
+          f"(1 x {LM_PREFILL}) {a['prefill_ms']:.3f} ms, decode step ({LM_SLOTS} slots) "
+          f"{a['decode_step_ms']:.3f} ms ({a['decode_tokens_per_s']:.1f} tokens/s), CUDA "
+          f"events; the card busy {_fmt_ms(a['prefill_device_ms'])} / "
+          f"{_fmt_ms(a['decode_step_device_ms'])} ms of them (profiler); "
+          f"max_memory_allocated {a['max_memory_allocated']} bytes ({card})")
+    print(f"  decode after a prefill of {LM_CHECK_LEN} against a prefill of {LM_CHECK_LEN + 1}: "
+          f"relative Frobenius {cmp['rel_frobenius']:.3e} (bound {cmp['bound']}), max |diff| "
+          f"{cmp['max_abs']:.4f} at scale {cmp['scale']:.3f}, top-1 agreement "
+          f"{cmp['top1_agree']:.2f}")
+    for arch, f in lm["families"].items():
+        print(f"  {arch} ({f['family']}, full width, {f['layers']} layers, {f['params']} "
+              f"parameters, float32): card against CPU, max |diff| / scale "
+              + ", ".join(f"{k} {v:.2e}" for k, v in f["rel_max_err"].items())
+              + f" (bound {f['bound']}); card {f['card_ms']:.1f} ms, CPU {f['cpu_ms']:.1f} ms")
+    b = lm["band_split"]
+    print(f"  WaveletBandSplit {b['scheme']}/{b['mode']} {b['levels']} levels on "
+          f"{tuple(b['shape'])}: bands {b['bands']} equal to the plain version's, "
+          f"{b['ms']:.3f} ms, launches {b['launches']}, no plain version on a CUDA tensor")
+    print(f"launches on the LM path: {lm['launches']}; phase 13 {lm['s']:.1f} s")
 
 
 def main() -> int:
@@ -3393,18 +3638,21 @@ def main() -> int:
     print_paper(pe, card)
     sp = sharded_paths(rng, dev, args.requests)
     print_sharded(sp, card)
+    lm = lm_serving(rng, dev, args.seed)
+    print_lm(lm, card)
     kernels_paper = [filterbank_entry(pe)]
     for k in kernels + kernels_1d + kernels_3d + kernels_paper:
         k["launches_ckpt"] = ck["launches"].get(k["name"], 0)
         k["launches_sharded"] = (sp["serve"]["runs"]["encoded"]["launches"].get(k["name"], 0)
                                  + sp["transform"]["ranks"][0]["launches"].get(k["name"], 0))
+        k["launches_lm"] = lm["launches"].get(k["name"], 0)
     if args.json_out:
         record = {"card": card, "torch": torch.__version__, "seed": args.seed,
                   "checkpoint": ck,
                   "parity_cases": checks, "serve": srv, "serve_encoded": enc,
                   "path_1d": lib, "kernels_1d_shapes": shapes_1d, "path_3d": vp,
                   "kernels_3d_levels": levels_3d, "whole2d_chains": chains_2d,
-                  "paper_evaluation": pe, "sharded": sp,
+                  "paper_evaluation": pe, "sharded": sp, "lm_serving": lm,
                   "kernels": kernels + kernels_1d + kernels_3d + kernels_paper}
         out = pathlib.Path(args.json_out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -107,18 +107,6 @@ def _torch_dtype(name: str) -> torch.dtype:
     return dt
 
 
-def _to_tensor(leaf: Any) -> Tensor:
-    """A leaf as a tensor: tensors as they are; numpy arrays and numbers
-    through ``np.asarray`` (so a Python int is int64, as the reference
-    stores it); bfloat16 arrays (ml_dtypes) through an int16 view."""
-    if isinstance(leaf, Tensor):
-        return leaf
-    arr = np.asarray(leaf)
-    if arr.dtype.name == "bfloat16":
-        return torch.from_numpy(np.array(arr.view(np.int16))).view(torch.bfloat16)
-    return torch.from_numpy(np.array(arr))
-
-
 def _host_bytes(t: Tensor) -> bytes:
     """The leaf's bytes as numpy lays them out (bf16: 2-byte patterns)."""
     t = t.detach()
@@ -143,7 +131,7 @@ def tree_from_numpy(tree: PyTree, device="cuda") -> PyTree:
     """A nested dict/list tree of host arrays (the JAX package's state,
     bfloat16 included) as tensors on ``device``, same leaf names."""
     dev = backend.resolve_device(device)
-    return T.map_leaves(lambda a: _to_tensor(a).to(dev), tree)
+    return T.map_leaves(lambda a: T.to_tensor(a).to(dev), tree)
 
 
 def tree_to_numpy(tree: PyTree) -> PyTree:
@@ -429,7 +417,7 @@ def _snapshot(tree: PyTree) -> List[Tuple[str, Tensor]]:
     numbers."""
     out = []
     for name, leaf in T.leaf_paths(tree):
-        t = _to_tensor(leaf)
+        t = T.to_tensor(leaf)
         if t is leaf:
             t = leaf.detach().clone(memory_format=torch.contiguous_format)
         out.append((name, t))

@@ -1,4 +1,5 @@
-"""The port's serve tier: the 2-D and 3-D wavelet-transform routes.
+"""The port's serve tier: the 2-D and 3-D wavelet-transform routes and
+the LM engine.
 
     scheduler.py   bucketed FIFO admission — shape routing, load
                    shedding, deadlines (host-only, no device work)
@@ -8,9 +9,11 @@
                    WZRC response encode
     routes.py      progressive fidelity tiers (thumbnail / refine /
                    full) from one stored bitstream per micro-batch
+    serve_step.py  the batched-LM serving engine (prefill + decode
+                   slots; ``Request``, ``ServeEngine``)
 
-Port of ``repro.serve`` without the LM engine (``ROADMAP.md``, Queue 1
-item 9).
+Port of ``repro.serve``, which exports the same names (the LM engine
+from ``serve_step``).
 """
 from repro_torch.serve.engine import (  # noqa: F401
     TransformRequest,
@@ -28,11 +31,14 @@ from repro_torch.serve.routes import (  # noqa: F401
     tier_shape,
 )
 from repro_torch.serve.scheduler import BucketScheduler  # noqa: F401
+from repro_torch.serve.serve_step import Request, ServeEngine  # noqa: F401
 
 __all__ = [
     "BucketScheduler",
     "ExecKey",
     "ProgressiveServeRoute",
+    "Request",
+    "ServeEngine",
     "StoredResponse",
     "TransformExecutor",
     "TransformRequest",

@@ -1,4 +1,5 @@
 """Training-side codecs.  Port of ``repro.train``: so far
 ``grad_compress.py``, the cross-pod gradient sync and its byte
-accounting (the train step and optimizer come with the LM stack,
-ROADMAP.md Queue 1 item 9)."""
+accounting.  The optimizer and the train step (``optim.py``,
+``train_step.py``) come next, on the LM stack's models
+(``repro_torch.models``; ROADMAP.md Queue 1 item 9)."""

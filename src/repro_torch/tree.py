@@ -15,6 +15,9 @@ from __future__ import annotations
 import collections
 from typing import Any, Callable, Iterator, List, Optional, Sequence, Tuple
 
+import numpy as np
+import torch
+
 PyTree = Any
 
 
@@ -90,3 +93,16 @@ def unflatten(template: PyTree, values: Sequence[Any], is_leaf: IsLeaf = None) -
 def map_leaves(fn: Callable[[Any], Any], tree: PyTree, is_leaf: IsLeaf = None) -> PyTree:
     """``tree``'s structure with ``fn`` applied to every leaf."""
     return unflatten(tree, [fn(leaf) for leaf in leaves(tree, is_leaf)], is_leaf)
+
+
+def to_tensor(leaf: Any) -> torch.Tensor:
+    """A leaf as a tensor: tensors as they are; numpy arrays and numbers
+    through ``np.asarray`` (so a Python int is int64, as the reference
+    stores it); bfloat16 arrays (ml_dtypes) through an int16 view, bit
+    for bit."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(arr.view(np.int16))).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))

@@ -1028,3 +1028,131 @@ def test_cuda_pod_sync_one_rank_nccl_equals_the_cpu_codec(nccl_world):
     ll_q, det_q = TCMP.quantize_pyramid_2d(pyr, shifts)
     own = TCMP.reconstruct_pyramid_2d(ll_q.to(torch.int32), TCMP._as_i32(det_q), shifts)
     assert torch.equal(err["w"].cpu(), TCMP.residual_fused(v, own, scale))
+
+
+# ---------------------------------------------------------------------------
+# The LM stack on the card (models, ServeEngine, data pipeline)
+# ---------------------------------------------------------------------------
+
+LM_FAMILIES = ("granite-3-8b", "phi3.5-moe-42b-a6.6b", "rwkv6-7b", "recurrentgemma-2b",
+               "musicgen-medium", "internvl2-26b")
+
+
+def _lm_close(got, want, bound):
+    """max |got - want| <= bound x max(1, max |want|)."""
+    want = want.float().cpu()
+    scale = max(1.0, want.abs().max().item())
+    assert got.shape == want.shape
+    assert (got.float().cpu() - want).abs().max().item() <= bound * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_FAMILIES)
+def test_cuda_reduced_family_matches_cpu(arch, cuda_device):
+    """A reduced config of each family, float32 on the card against the
+    same functions on the CPU from the same parameters: forward, prefill
+    and 3 decode steps within 2e-4 of the logits' scale (3e-2 for the
+    hybrid: its RG-LRU cancels in sqrt(1 - a^2), tests/test_torch_models.py)."""
+    from repro_torch import tree as TTREE
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import layers as ML
+    from repro_torch.models import transformer as TF
+
+    cfg = reduced(get_config(arch))
+    bound = 3e-2 if cfg.family == "hybrid" else 2e-4
+    on_card = ML.init_params(TF.model_defs(cfg), 3, device=cuda_device)
+    on_cpu = TTREE.map_leaves(lambda t: t.cpu(), on_card)
+    rng = np.random.default_rng(3)
+
+    def inputs(s):
+        if cfg.input_mode == "tokens":
+            return {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, s),
+                                                            dtype=np.int32))}
+        return {"embeds": torch.from_numpy(rng.standard_normal((2, s, cfg.d_model),
+                                                               dtype=np.float32))}
+
+    prompt, steps = inputs(32), [inputs(1) for _ in range(3)]
+    outs = {}
+    for where, params, dev in (("card", on_card, cuda_device), ("cpu", on_cpu, "cpu")):
+        def to(kw):
+            return {k: v.to(dev) for k, v in kw.items()}
+        logits, aux = TF.forward(params, cfg, **to(prompt))
+        got = [logits, aux]
+        lg, caches = TF.prefill(params, cfg, **to(prompt))
+        got.append(lg)
+        for x in steps:
+            lg, caches = TF.decode_step(params, cfg, caches, **to(x))
+            got.append(lg)
+        assert caches["len"].device.type == torch.device(dev).type
+        got += [v for k, v in sorted(caches.items()) if k != "len"]
+        outs[where] = got
+    for g, w in zip(outs["card"], outs["cpu"]):
+        _lm_close(g, w, bound)
+
+
+@pytest.mark.cuda
+def test_cuda_serve_engine_matches_cpu(cuda_device):
+    """Greedy tokens of the engine on the card equal the CPU engine's on
+    the same float32 parameters; the engine's caches stay on the card."""
+    from repro_torch import tree as TTREE
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import layers as ML
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = reduced(get_config("granite-3-8b"))
+    on_card = ML.init_params(TF.model_defs(cfg), 4, device=cuda_device)
+    on_cpu = TTREE.map_leaves(lambda t: t.cpu(), on_card)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32) for n in (3, 7, 1, 5, 2)]
+    runs = {}
+    for where, params, dev in (("card", on_card, cuda_device), ("cpu", on_cpu, "cpu")):
+        eng = ServeEngine(cfg, params, 3, 8, device=dev)
+        done = eng.run([Request(uid=i, prompt=p, max_new=4 + i) for i, p in enumerate(prompts)])
+        assert all(t.device.type == torch.device(dev).type for t in eng.caches.values())
+        runs[where] = [(r.uid, r.out_tokens) for r in done]
+    assert runs["card"] == runs["cpu"]
+    eng = ServeEngine(cfg, on_card, 2, 8, temperature=0.7, seed=11, device=cuda_device)
+    a = eng.run([Request(uid=0, prompt=prompts[0], max_new=6)])[0].out_tokens
+    eng = ServeEngine(cfg, on_card, 2, 8, temperature=0.7, seed=11, device=cuda_device)
+    assert eng.run([Request(uid=0, prompt=prompts[0], max_new=6)])[0].out_tokens == a
+
+
+@pytest.mark.cuda
+def test_cuda_band_split_launches_lift1d_and_no_plain_version(cuda_device, monkeypatch):
+    from repro_torch.core import lifting as CL
+    from repro_torch.data.pipeline import WaveletBandSplit
+    from repro_torch.kernels import dwt53 as TD
+
+    def refuse(name):
+        def fn(*args, **kwargs):
+            raise AssertionError(f"plain version {name} ran on the card's path")
+        return fn
+
+    rng = np.random.default_rng(5)
+    x = rng.integers(-32768, 32768, (8, 4096), dtype=np.int32)
+    want = CL.dwt_fwd(torch.from_numpy(x).to(cuda_device), levels=2, mode="paper",
+                      scheme="cdf53")
+    for name in ("lift_fwd_run_plain", "lift_fwd_windows_plain"):
+        monkeypatch.setattr(TD, name, refuse(name))
+    TK.launches.reset()
+    bands = WaveletBandSplit(levels=2, mode="paper", scheme="cdf53", device=cuda_device)(x)
+    assert TK.launches.snapshot() == {"lift1d_fwd": 1}
+    np.testing.assert_array_equal(bands["approx"], want.approx.cpu().numpy())
+    for i, d in enumerate(want.details):
+        np.testing.assert_array_equal(bands[f"detail_{i}"], d.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_params_from_numpy_lands_on_the_card(cuda_device):
+    """The default device is the card (without one it raises:
+    tests/test_torch_lm_serve.py); bfloat16 bits are kept."""
+    from repro_torch.models import layers as ML
+
+    bits = np.arange(-5, 5, dtype=np.int16)
+    got = ML.params_from_numpy({"a": {"b": np.ones(3, np.float32)}, "c": bits})
+    assert got["a"]["b"].is_cuda and got["c"].is_cuda
+    t = torch.from_numpy(bits).view(torch.bfloat16)
+    moved = ML.params_from_numpy({"x": t})["x"]
+    assert moved.is_cuda and moved.dtype == torch.bfloat16
+    assert torch.equal(moved.cpu().view(torch.int16), torch.from_numpy(bits))

@@ -56,7 +56,12 @@ def test_the_scan_sees_every_port_module():
                  "benchmarks/torch_table3_timing.py", "benchmarks/torch_fig5_lossless.py",
                  "benchmarks/torch_run.py", "src/repro_torch/kernels/sharded.py",
                  "src/repro_torch/sharding.py", "src/repro_torch/launch/mesh.py",
-                 "src/repro_torch/collectives.py"):
+                 "src/repro_torch/collectives.py", "src/repro_torch/configs/base.py",
+                 "src/repro_torch/configs/stablelm_1_6b.py", "src/repro_torch/models/layers.py",
+                 "src/repro_torch/models/attention.py", "src/repro_torch/models/moe.py",
+                 "src/repro_torch/models/rglru.py", "src/repro_torch/models/rwkv6.py",
+                 "src/repro_torch/models/transformer.py", "src/repro_torch/serve/serve_step.py",
+                 "src/repro_torch/data/pipeline.py"):
         assert must in names
 
 
@@ -75,7 +80,9 @@ def test_fresh_interpreter_imports_the_port_without_jax():
         "repro_torch.core.pe, repro_torch.timing, benchmarks.torch_run, "
         "benchmarks.torch_table2_opcounts, benchmarks.torch_table3_timing, "
         "benchmarks.torch_fig5_lossless, repro_torch.kernels.sharded, repro_torch.sharding, "
-        "repro_torch.launch.mesh, repro_torch.collectives; "
+        "repro_torch.launch.mesh, repro_torch.collectives, repro_torch.configs, "
+        "repro_torch.models.transformer, repro_torch.serve.serve_step, "
+        "repro_torch.data.pipeline; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'));"
         "print(bad); sys.exit(1 if bad else 0)"
     )
