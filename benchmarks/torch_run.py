@@ -1,8 +1,9 @@
 """The port's paper benchmarks: Table 2, Table 3 and Fig. 5 on
-``repro_torch``.  Prints ``name,value,notes`` CSV, as ``benchmarks/run.py``
+``repro_torch``, and the gradient-sync and checkpoint compression
+experiments (``gradsync``, ``ckpt``).  Prints ``name,value,notes`` CSV, as ``benchmarks/run.py``
 does for the reference, and exits nonzero if any benchmark failed.
 
-    PYTHONPATH=src python -m benchmarks.torch_run [--only table2,table3,fig5]
+    PYTHONPATH=src python -m benchmarks.torch_run [--only table2,table3,fig5,gradsync,ckpt]
                                                  [--device cuda|cpu] [--small]
 
 ``--device`` defaults to the card (``cuda``), where Table 3 times the
@@ -16,7 +17,7 @@ import pathlib
 import sys
 import traceback
 
-ALL = ["table2", "table3", "fig5"]
+ALL = ["table2", "table3", "fig5", "gradsync", "ckpt"]
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "src"))
 
@@ -28,6 +29,10 @@ def _load(name: str):
         from benchmarks import torch_table3_timing as m
     elif name == "fig5":
         from benchmarks import torch_fig5_lossless as m
+    elif name == "gradsync":
+        from benchmarks import torch_grad_compression as m
+    elif name == "ckpt":
+        from benchmarks import torch_ckpt_compression as m
     else:
         raise KeyError(name)
     return m

@@ -222,12 +222,43 @@ Phases (any failure raises and the script exits nonzero):
    WaveletBandSplit`` (cdf53 / paper, 2 levels, 8 x 65,536 16-bit
    samples) on the card under the plain-version guard: one ``lift1d_fwd``
    launch, bands equal to the plain version's run on the card.
-14. Print the ``{"kernels": [...]}`` line (each kernel with its launches
-   on the checkpoint path, on the sharded paths and on the LM path too;
-   the float kernel's from phase 11, its times at (a)), the card line,
-   and last the ``{"ok": true, ...}`` line.  ``--json-out PATH`` also writes the whole
-   record (every batch latency, every level's, band's and shape's time)
-   to PATH.
+14. Training, with the counters reset just before and read just after
+   and the plain-version guard on (the 1-D, 2-D and 3-D plain versions):
+   (a) ``train.train_step.make_train_step`` on stablelm-2-1.6b at full
+   width and full depth (24 layers, bfloat16, ``remat=True`` as the
+   config has it, ``launch.train.init_train_state`` from ``--seed`` on
+   the card), 6 steps on one repeated ``SyntheticLM`` batch of 8 x 256,
+   ``AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=6)``: every loss
+   finite and the last below the first; step ms (CUDA events), the
+   card's busy ms (profiler), tokens/s and ``max_memory_allocated`` with
+   remat on and off (one step each).  (b) Determinism: stablelm-2-1.6b
+   at full width, depth cut to 2, under deterministic algorithms (and
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, set before CUDA starts): two
+   runs of 2 steps from the same seed end ``torch.equal``, and a remat
+   step equals a no-remat step (or the op that has no deterministic
+   version is printed).  (c) ``make_wavelet_train_step`` on 2 gloo ranks
+   sharing the card (phase 12's route): phase 10's tree (4 layers),
+   ``WaveletSyncConfig(levels=2, codec="bands", n_pods=2,
+   min_size=256)``, 3 steps, then 1 step with ``spatial_2d`` and
+   ``spatial_3d`` on: the replicas bit-identical across the ranks, each
+   loss within 5% of the plain step's on the same batches, ring bytes a
+   hop equal to ``pod_collective_bytes``' payload, the smallest leaf of
+   each route synced on the card equal to the same sync on the CPU,
+   ``lift1d_fwd`` / ``lift1d_inv`` launched (and the 2-D and 3-D kernels
+   in the spatial step), ms of a step and of its ``pod_sync_tree`` a
+   rank.  (d) One config per family (phase 13 (b)'s) at full width,
+   depth cut, float32, parameters by phase 10's fill rule:
+   ``loss_fn``'s gradients on the card against the CPU from the same
+   parameters and batch, within 2e-3 of each leaf's largest magnitude
+   (hybrid 3e-2); then stablelm under the reference's init rule, whose
+   float32 gradients are ill-conditioned at full width: card against
+   CPU and the CPU on one thread against itself, printed.
+15. Print the ``{"kernels": [...]}`` line (each kernel with its launches
+   on the checkpoint path, on the sharded paths, on the LM path and on
+   the training path too; the float kernel's from phase 11, its times at
+   (a)), the card line, and last the ``{"ok": true, ...}`` line.
+   ``--json-out PATH`` also writes the whole record (every batch
+   latency, every level's, band's and shape's time) to PATH.
 """
 from __future__ import annotations
 
@@ -236,6 +267,7 @@ import collections
 import contextlib
 import dataclasses
 import json
+import os
 import pathlib
 import shutil
 import statistics
@@ -3074,13 +3106,30 @@ def _ring_bytes() -> int:
                    if k.startswith("collectives.wire_bytes") and 'op="ring"' in k))
 
 
+def ring_payload(tree: dict, cfg) -> int:
+    """The ring's bytes a hop for ``tree``'s leaves: ``pod_collective_bytes``'
+    analytic payload of each banded leaf less its 8 bytes a slice for the
+    scale and shifts, which travel by all_reduce, not by the ring."""
+    import math
+
+    from repro_torch.train import grad_compress as G
+
+    total = 0
+    for v in tree.values():
+        route = G.leaf_route(v, cfg)
+        if route in ("raw", "lowband"):
+            continue
+        slices = 1 if route == "1d" else v.numel() // math.prod(
+            v.shape[-3:] if route == "3d" else v.shape[-2:])
+        total += G.pod_collective_bytes({"x": v}, cfg)[1] - 8 * slices
+    return total
+
+
 def _pod_rank(rank, world, init, outdir, seed, layers, device_type):
     """Phase 12 (c), one rank: ``pod_sync_tree`` over 2 pods on the
     gradients of phase 10's tree, every route; ring bytes against the
     analytic figure; one leaf of each route against the same sync on the
     CPU."""
-    import math
-
     import torch.distributed as dist
 
     from repro_torch import kernels as K
@@ -3116,12 +3165,7 @@ def _pod_rank(rank, world, init, outdir, seed, layers, device_type):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         ms = (time.perf_counter() - t) * 1e3
-        # the analytic payload less its 8 bytes a slice for the scale and
-        # shifts, which travel by all_reduce, not by the ring
-        want = sum(G.pod_collective_bytes({k: v}, cfg)[1] - 8 * (
-            1 if route == "1d" else v.numel() // math.prod(
-                v.shape[-3:] if route == "3d" else v.shape[-2:]))
-            for k, v in sub.items() if G.leaf_route(v, cfg) == route != "raw")
+        want = ring_payload({k: v for k, v in sub.items() if G.leaf_route(v, cfg) == route}, cfg)
         got = _ring_bytes()
         if got != want:
             raise AssertionError(f"rank {rank} route {route}: ring shipped {got} bytes, "
@@ -3453,6 +3497,477 @@ def print_lm(lm: dict, card: str) -> None:
     print(f"launches on the LM path: {lm['launches']}; phase 13 {lm['s']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: training.
+# ---------------------------------------------------------------------------
+
+# (a) stablelm-2-1.6b (repro_torch.configs) uncut, bfloat16, remat=True
+# (the config's), init_train_state from --seed on the card; one repeated
+# SyntheticLM batch
+TRAIN_ARCH = "stablelm-1.6b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 6
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=6)
+# (b) full width, depth cut to 2, under deterministic algorithms
+DET_LAYERS, DET_STEPS = 2, 2
+# (c) phase 10's tree (full width, 4 layers) on 2 gloo pods sharing the
+# card: 3 steps with the 1-D codec, then 1 with the 2-D and 3-D codecs
+POD_TRAIN = dict(levels=2, codec="bands", n_pods=POD_RANKS, min_size=256)
+POD_TRAIN_STEPS = 3
+POD_LOSS_BOUND = 0.05  # relative to the plain step's loss (tests/test_distributed.py)
+# (d) phase 13 (b)'s families, float32; the gradients' bound relative to
+# each leaf's largest magnitude (the hybrid's RG-LRU: LM_FAMILY_BOUND)
+TRAIN_FAMILY_BOUND = {"hybrid": 3e-2}
+TRAIN_FAMILY_BOUND_DEFAULT = 2e-3
+
+
+def _train_batches(cfg, seed: int, n: int, dev) -> list:
+    """``n`` SyntheticLM batches of TRAIN_BATCH x TRAIN_SEQ on ``dev``."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.train import batch_to_device
+
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=seed))
+    return [batch_to_device(cfg, data.batch(s), dev) for s in range(n)]
+
+
+def _event_ms(fn, dev):
+    """``fn()`` and its CUDA-event ms."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def train_full_depth(dev, seed: int) -> dict:
+    """Phase 14 (a): the plain step on stablelm-2-1.6b at full size."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import init_train_state
+    from repro_torch.train import optim
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    if not cfg.remat:
+        raise AssertionError(f"{TRAIN_ARCH}'s config has remat off")
+    state, init_ms = _timed(lambda: init_train_state(cfg, seed, dev), dev)
+    (batch,) = _train_batches(cfg, seed, 1, dev)
+    step = make_train_step(cfg, optim.AdamWConfig(**TRAIN_OPT))
+    p, o = state.pop("params"), state.pop("opt")  # one live state: each step makes the next
+    losses, step_ms = [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(TRAIN_STEPS):
+        (p, o, m), ms = _event_ms(lambda: step(p, o, batch), dev)
+        losses.append(float(m["loss"]))
+        step_ms.append(ms)
+    peak_training = torch.cuda.max_memory_allocated(dev)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{TRAIN_ARCH} at full size: losses {losses} (want finite, falling)")
+    busy = _pass_ms(lambda: step(p, o, batch), reps=2, warm=1, every_kernel=True)
+    busy_ms = sum(busy.values()) if all(isinstance(v, float) for v in busy.values()) else None
+    memory = {}
+    for remat in (True, False):
+        one = make_train_step(dataclasses.replace(cfg, remat=remat),
+                              optim.AdamWConfig(**TRAIN_OPT))
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        _, ms = _event_ms(lambda: one(p, o, batch), dev)
+        memory["remat" if remat else "no_remat"] = {
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+            "state_bytes": before, "step_ms": ms}
+    steady = statistics.median(step_ms[1:])
+    out = {"arch": TRAIN_ARCH, "layers": cfg.n_layers, "params": sum(
+        t.numel() for t in T.leaves(p)), "init_ms": init_ms, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+        "losses": losses, "step_ms": step_ms, "step_ms_p50": steady,
+        "busy_ms": busy_ms, "busy_by_kernel_top": dict(sorted(
+            ((k, v) for k, v in busy.items() if isinstance(v, float)),
+            key=lambda kv: -kv[1])[:8]),
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (steady / 1e3),
+        "max_memory_allocated_6_steps": peak_training, "memory": memory}
+    del p, o, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_determinism(dev, seed: int) -> dict:
+    """Phase 14 (b): two runs of DET_STEPS steps from the same seed, and a
+    remat step against a no-remat step, under deterministic algorithms."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import init_train_state
+    from repro_torch.train import optim
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=DET_LAYERS)
+    batches = _train_batches(cfg, seed, DET_STEPS, dev)
+    opt_cfg = optim.AdamWConfig(**TRAIN_OPT)
+
+    def run(c, steps):
+        state = init_train_state(c, seed, dev)
+        p, o = state["params"], state["opt"]
+        step = make_train_step(c, opt_cfg)
+        for b in batches[:steps]:
+            p, o, _ = step(p, o, b)
+        return T.leaves(p) + T.leaves(o.m) + T.leaves(o.v)
+
+    def unequal(a, b):
+        return [i for i, (x, y) in enumerate(zip(a, b)) if not torch.equal(x, y)]
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            twice = unequal(run(cfg, DET_STEPS), run(cfg, DET_STEPS))
+            remat = unequal(run(dataclasses.replace(cfg, remat=True), 1),
+                            run(dataclasses.replace(cfg, remat=False), 1))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ops = sorted({str(w.message).split(" does not have")[0][:120] for w in caught
+                  if "deterministic" in str(w.message)})
+    if twice:
+        raise AssertionError(f"two runs from seed {seed} differ at {len(twice)} leaves "
+                             f"(ops without a deterministic version: {ops})")
+    if remat and not ops:
+        raise AssertionError(f"a remat step differs from a no-remat step at {len(remat)} "
+                             "leaves, and every op was deterministic")
+    torch.cuda.empty_cache()
+    return {"layers": DET_LAYERS, "steps": DET_STEPS, "runs_equal": True,
+            "remat_equal": not remat, "remat_unequal_leaves": len(remat),
+            "nondeterministic_ops": ops}
+
+
+def _train_pod_rank(rank, world, init, outdir, seed, layers, device_type):
+    """Phase 14 (c), one rank: the wavelet-synced step on phase 10's tree;
+    replicas against the other rank's, ring bytes against the analytic
+    payload, the smallest leaf of each route against the same sync on
+    the CPU, launches under the plain-version guard."""
+    from repro_torch import kernels as K
+    from repro_torch import obs
+    from repro_torch import tree as T
+    from repro_torch.collectives import AxisComm
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import init_train_state
+    from repro_torch.train import grad_compress as G
+    from repro_torch.train import optim
+    from repro_torch.train import train_step as S
+
+    mesh = _world("gloo", rank, world, init, device_type, axis="pod")
+    dev = torch.device("cuda", 0) if device_type == "cuda" else torch.device("cpu")
+    comm = AxisComm(mesh, "pod")
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=layers)
+    state = init_train_state(cfg, seed, dev)  # the same seed on every rank
+    batches = _train_batches(cfg, seed, POD_TRAIN_STEPS + 1, dev)
+    opt_cfg = optim.AdamWConfig(**TRAIN_OPT)
+    cases = [("1d", G.WaveletSyncConfig(**POD_TRAIN))] * POD_TRAIN_STEPS + [
+        ("spatial", G.WaveletSyncConfig(**POD_TRAIN, spatial_2d=True, spatial_3d=True))]
+    p, o = S.podded(state["params"], 1), S.podded_opt(state["opt"], 1)
+    err = S.init_podded_error_feedback(state["params"], 1)
+    del state
+    rec = {"rank": rank, "route": comm.route(dev), "steps": [], "launches": {}}
+    orig = G.pod_sync_tree
+    sync = {}
+
+    def timed_sync(grads, err_fb, cfg_s, axis_name="pod", mesh=None):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        out = orig(grads, err_fb, cfg_s, axis_name, mesh=mesh)
+        torch.cuda.synchronize(dev)
+        sync["ms"] = (time.perf_counter() - t) * 1e3
+        sync["ring_bytes"] = _ring_bytes()
+        sync["payload"] = ring_payload(dict(T.leaf_paths(grads)), cfg_s)
+        sync["routes"] = sorted({G.leaf_route(g, cfg_s) for g in T.leaves(grads)})
+        if sync.pop("compare", False):  # the path's kernels against the CPU sync
+            named, named_err = dict(T.leaf_paths(grads)), dict(T.leaf_paths(err_fb))
+            got, got_err = dict(T.leaf_paths(out[0])), dict(T.leaf_paths(out[1]))
+            for route in sync["routes"]:
+                name = min((k for k, g in named.items() if G.leaf_route(g, cfg_s) == route),
+                           key=lambda k: named[k].numel())
+                s_cpu, e_cpu = orig({name: named[name].cpu()}, {name: named_err[name].cpu()},
+                                    cfg_s, axis_name, mesh=mesh)
+                if not (torch.equal(s_cpu[name], got[name].cpu())
+                        and torch.equal(e_cpu[name], got_err[name].cpu())):
+                    raise AssertionError(f"rank {rank} route {route} leaf {name}: card sync != "
+                                         "CPU sync")
+                sync.setdefault("checked", []).append(f"{route}:{name}")
+        return out
+
+    G.pod_sync_tree = timed_sync
+    guard = PlainGuard(PlainGuard.TARGETS + PlainGuard.TARGETS_2D)
+    try:
+        for i, (case, scfg) in enumerate(cases):
+            step = S.make_wavelet_train_step(cfg, mesh, opt_cfg, scfg)
+            sync["compare"] = i in (0, POD_TRAIN_STEPS)
+            obs.reset()
+            K.launches.reset()
+            with guard:
+                (p, o, err, m), ms = _timed(lambda: step(p, o, err, batches[i]), dev)
+            launched = K.launches.snapshot()
+            if guard.calls:
+                raise AssertionError(f"rank {rank} step {i}: plain versions on CUDA tensors "
+                                     f"{guard.calls}")
+            if sync["ring_bytes"] != sync["payload"]:
+                raise AssertionError(f"rank {rank} step {i}: ring shipped {sync['ring_bytes']} "
+                                     f"bytes, analytic payload {sync['payload']}")
+            for k, v in launched.items():
+                rec["launches"][k] = rec["launches"].get(k, 0) + v
+            rec["steps"].append({"case": case, "loss": float(m["loss"]), "ms": ms,
+                                 "pod_sync_ms": sync["ms"], "ring_bytes": sync["ring_bytes"],
+                                 "routes": sync["routes"], "launches": launched,
+                                 "checked": sync.pop("checked", [])})
+    finally:
+        G.pod_sync_tree = orig
+    # the replicas against the other rank's, leaf by leaf (one ring hop)
+    leaves = T.leaves(p) + T.leaves(o.m) + T.leaves(o.v)
+    rec["replica_leaves_equal"] = sum(bool(torch.equal(x, comm.shift(x, op="check")))
+                                      for x in leaves)
+    rec["replica_leaves"] = len(leaves)
+    rec["step"] = int(o.step)
+    import torch.distributed as dist
+
+    dist.barrier()
+    (pathlib.Path(outdir) / f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.destroy_process_group()
+
+
+def train_pods(dev, seed: int) -> dict:
+    """Phase 14 (c): the wavelet-synced step on 2 gloo ranks, against the
+    plain step on the same batches in this process."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import init_train_state
+    from repro_torch.train import optim
+    from repro_torch.train.train_step import make_train_step
+
+    tmp = _scratch("train_pod_")
+    t = time.perf_counter()
+    try:
+        ranks = _spawn(_train_pod_rank, POD_RANKS, (seed, POD_LAYERS, dev.type), tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=POD_LAYERS)
+    state = init_train_state(cfg, seed, dev)
+    step = make_train_step(cfg, optim.AdamWConfig(**TRAIN_OPT))
+    p, o, plain = state["params"], state["opt"], []
+    for b in _train_batches(cfg, seed, POD_TRAIN_STEPS + 1, dev):
+        p, o, m = step(p, o, b)
+        plain.append(float(m["loss"]))
+    del state, p, o
+    torch.cuda.empty_cache()
+    for r in ranks:
+        if r["replica_leaves_equal"] != r["replica_leaves"] or r["step"] != POD_TRAIN_STEPS + 1:
+            raise AssertionError(f"rank {r['rank']}: {r['replica_leaves_equal']} of "
+                                 f"{r['replica_leaves']} replica leaves equal the other rank's")
+        for i, (st, want) in enumerate(zip(r["steps"], plain)):
+            if st["loss"] != ranks[0]["steps"][i]["loss"] or not (
+                    abs(st["loss"] - want) <= POD_LOSS_BOUND * abs(want)):
+                raise AssertionError(f"rank {r['rank']} step {i} ({st['case']}): loss "
+                                     f"{st['loss']} against the plain step's {want}")
+        one_d = [s["launches"] for s in r["steps"] if s["case"] == "1d"]
+        spatial = [s["launches"] for s in r["steps"] if s["case"] == "spatial"][0]
+        if not all(ln.get("lift1d_fwd") and ln.get("lift1d_inv") for ln in one_d):
+            raise AssertionError(f"rank {r['rank']}: a 1-D step launched {one_d}")
+        if not (any(spatial.get(k) for k in ("whole3d_fwd", "slab3d_fwd"))
+                and any(spatial.get(k) for k in ("whole2d_fwd", "tiled2d_fwd"))):
+            raise AssertionError(f"rank {r['rank']}: the spatial step launched {spatial}")
+    return {"layers": POD_LAYERS, "sync": POD_TRAIN, "ranks": ranks, "plain_losses": plain,
+            "s": secs}
+
+
+def filled_params(defs, seed: int, dtype, dev) -> dict:
+    """Phase 10's fill rule (``fill_kind``: normal(0, 0.02) matrices and
+    embeddings, ones for scales, zeros for biases), drawn on ``dev`` from
+    a ``torch.Generator`` seeded with ``seed``."""
+    from repro_torch import tree as T
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def make(defn):
+        kind = fill_kind(defn)
+        if kind == "normal":
+            x = torch.randn(defn.shape, generator=gen, dtype=torch.float32, device=dev)
+            return x.mul_(0.02).to(dtype)
+        return (torch.ones if kind == "ones" else torch.zeros)(defn.shape, dtype=dtype, device=dev)
+
+    return T.map_leaves(make, defs)
+
+
+def _grad_spread(got, want, names) -> tuple:
+    """The largest max |got - want| over a leaf's largest magnitude, and
+    its leaf."""
+    worst, worst_name = 0.0, ""
+    for name, a, b in zip(names, got, want):
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item() / scale if scale else (a - b).abs().max().item()
+        if err > worst:
+            worst, worst_name = err, name
+    return worst, worst_name
+
+
+def train_families(rng, dev, seed: int) -> dict:
+    """Phase 14 (d): ``loss_fn``'s gradients per family at full width,
+    the card against the CPU from the same parameters and batch.
+
+    The parameters follow phase 10's fill rule.  Under the reference's
+    init rule (``init_params``: std 1/sqrt(dim 0), and dim 0 of a stacked
+    leaf is the layer count) the attention logits saturate and float32
+    gradients at full width are ill-conditioned: the CPU's own gradients
+    move with its thread count.  That is measured on stablelm (``init``)
+    and printed, not bounded."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as ML
+    from repro_torch.models import transformer as TF
+    from repro_torch.train.train_step import _grads_of
+
+    cpu = torch.device("cpu")
+
+    def grads(cfg, params_card, batch):
+        on_cpu = T.map_leaves(lambda t: t.cpu(), params_card)
+        ms, got = {}, {}
+        for where, params, d in (("card", params_card, dev), ("cpu", on_cpu, cpu)):
+            t = time.perf_counter()
+            loss, _, g = _grads_of(cfg, 0)(params, {k: v.to(d) for k, v in batch.items()})
+            got[where] = (loss.cpu(), [x.cpu() for x in T.leaves(g)])
+            ms[where] = (time.perf_counter() - t) * 1e3
+        return got, ms, on_cpu
+
+    def family_batch(cfg):
+        batch = _lm_inputs(cfg, rng, 1, LM_FAMILY_LEN)
+        batch["labels"] = torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (1, LM_FAMILY_LEN), dtype=np.int32))
+        return batch
+
+    out = {}
+    for arch, layers in LM_FAMILIES:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers, param_dtype="float32",
+                                  compute_dtype="float32")
+        on_card = filled_params(TF.model_defs(cfg), seed, torch.float32, dev)
+        got, ms, on_cpu = grads(cfg, on_card, family_batch(cfg))
+        bound = TRAIN_FAMILY_BOUND.get(cfg.family, TRAIN_FAMILY_BOUND_DEFAULT)
+        names = [n for n, _ in T.leaf_paths(on_cpu)]
+        for name, a, b in zip(names, got["card"][1], got["cpu"][1]):
+            scale = b.abs().max().item()
+            err = (a - b).abs().max().item() / scale if scale else (a - b).abs().max().item()
+            if a.shape != b.shape or not torch.isfinite(a).all() or err > bound:
+                raise AssertionError(f"{arch} ({layers} layers) grad {name}: card against CPU "
+                                     f"{err:.3e} of the leaf's scale {scale:.3g} (bound {bound})")
+        worst, worst_name = _grad_spread(got["card"][1], got["cpu"][1], names)
+        loss_err = abs(got["card"][0].item() - got["cpu"][0].item()) / abs(got["cpu"][0].item())
+        if loss_err > bound:
+            raise AssertionError(f"{arch}: loss card against CPU {loss_err:.3e} (bound {bound})")
+        out[arch] = {"family": cfg.family, "layers": layers, "leaves": len(names),
+                     "params": sum(t.numel() for t in T.leaves(on_cpu)), "loss": got["cpu"][0].item(),
+                     "loss_rel_err": loss_err, "worst_rel_err": worst, "worst_leaf": worst_name,
+                     "bound": bound, "card_ms": ms["card"], "cpu_ms": ms["cpu"],
+                     "s": time.perf_counter() - t0}
+        del on_card, on_cpu, got
+        torch.cuda.empty_cache()
+    # the reference's init rule on stablelm, 2 layers: card against CPU,
+    # and the CPU against itself on one thread
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2, param_dtype="float32",
+                              compute_dtype="float32")
+    on_card = ML.init_params(TF.model_defs(cfg), seed, torch.float32, device=dev)
+    batch = family_batch(cfg)
+    got, ms, on_cpu = grads(cfg, on_card, batch)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _, _, one = _grads_of(cfg, 0)(on_cpu, batch)
+    finally:
+        torch.set_num_threads(threads)
+    names = [n for n, _ in T.leaf_paths(on_cpu)]
+    out["init_params"] = {
+        "arch": TRAIN_ARCH, "layers": 2, "card_vs_cpu": _grad_spread(got["card"][1],
+                                                                     got["cpu"][1], names),
+        "cpu_threads_1_vs_n": _grad_spread(T.leaves(one), got["cpu"][1], names),
+        "threads": threads, "s": time.perf_counter() - t0}
+    del on_card, on_cpu, got, one
+    torch.cuda.empty_cache()
+    return out
+
+
+def training(rng, dev, seed: int) -> dict:
+    """Phase 14: the counters reset just before and read just after, the
+    plain-version guard on in this process (and in each rank of (c))."""
+    from repro_torch import kernels as K
+
+    t = time.perf_counter()
+    K.launches.reset()
+    with PlainGuard(PlainGuard.TARGETS + PlainGuard.TARGETS_2D) as guard:
+        out = {"full_depth": train_full_depth(dev, seed)}
+        out["determinism"] = train_determinism(dev, seed)
+        out["pods"] = train_pods(dev, seed)
+        out["families"] = train_families(rng, dev, seed)
+    out["launches_here"] = K.launches.snapshot()
+    if guard.calls:
+        raise AssertionError(f"plain versions ran on CUDA tensors in training: {guard.calls}")
+    # the training path's launches: those of rank 0 of (c), where the
+    # gradient sync runs the kernels (the plain step launches none)
+    out["launches"] = dict(out["pods"]["ranks"][0]["launches"])
+    for k, v in out["launches_here"].items():
+        out["launches"][k] = out["launches"].get(k, 0) + v
+    if not (out["launches"].get("lift1d_fwd") and out["launches"].get("lift1d_inv")):
+        raise AssertionError(f"lift1d never launched on the training path: {out['launches']}")
+    out["s"] = time.perf_counter() - t
+    return out
+
+
+def print_training(tr: dict, card: str) -> None:
+    a = tr["full_depth"]
+    mem = a["memory"]
+    print(f"training: {a['arch']} at full width and depth ({a['layers']} layers, {a['params']} "
+          f"parameters, bfloat16, remat), batch {a['batch'][0]} x {a['batch'][1]} repeated, "
+          f"{TRAIN_STEPS} steps: losses " + ", ".join(f"{v:.4f}" for v in a["losses"])
+          + f"; step ms (events) " + ", ".join(f"{v:.1f}" for v in a["step_ms"])
+          + f", p50 of steps 2-{TRAIN_STEPS} {a['step_ms_p50']:.1f} ms, the card busy "
+          f"{_fmt_ms(a['busy_ms'])} ms a step (profiler), {a['tokens_per_s']:.0f} tokens/s; "
+          f"max_memory_allocated {a['max_memory_allocated_6_steps']} bytes; one step with remat "
+          f"{mem['remat']['max_memory_allocated']} bytes ({mem['remat']['step_ms']:.1f} ms), "
+          f"without {mem['no_remat']['max_memory_allocated']} bytes "
+          f"({mem['no_remat']['step_ms']:.1f} ms), the state {mem['remat']['state_bytes']} "
+          f"bytes ({card})")
+    print("  busiest kernels a step (profiler, ms): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in a["busy_by_kernel_top"].items()))
+    d = tr["determinism"]
+    print(f"  determinism ({d['layers']} layers, full width, deterministic algorithms): two runs "
+          f"of {d['steps']} steps torch.equal; remat step "
+          + ("torch.equal to a no-remat step" if d["remat_equal"] else
+             f"differs at {d['remat_unequal_leaves']} leaves")
+          + f"; ops without a deterministic version: {d['nondeterministic_ops'] or 'none'}")
+    pd = tr["pods"]
+    for r in pd["ranks"]:
+        print(f"  wavelet step rank {r['rank']} of {POD_RANKS} ({POD_LAYERS} layers, transport "
+              f"{r['route']}): " + "; ".join(
+                  f"{s['case']} loss {s['loss']:.4f} {s['ms']:.1f} ms (pod_sync_tree "
+                  f"{s['pod_sync_ms']:.1f}), ring {s['ring_bytes']} bytes a hop = payload, "
+                  f"routes {s['routes']}" + (f", {s['checked']} == CPU sync" if s["checked"]
+                                             else "")
+                  for s in r["steps"])
+              + f"; replicas {r['replica_leaves_equal']} / {r['replica_leaves']} leaves equal; "
+              f"launches {r['launches']} ({card})")
+    print("  plain step on the same batches: losses " + ", ".join(
+        f"{v:.4f}" for v in pd["plain_losses"]) + f" (bound {POD_LOSS_BOUND:.0%}); "
+        f"ranks {pd['s']:.1f} s")
+    fam = dict(tr["families"])
+    ref_init = fam.pop("init_params")
+    for arch, f in fam.items():
+        print(f"  {arch} ({f['family']}, full width, {f['layers']} layers, {f['params']} "
+              f"parameters, float32, phase 10's fill): loss_fn grads card against CPU, worst "
+              f"{f['worst_rel_err']:.2e} of the leaf's scale ({f['worst_leaf']}), loss "
+              f"{f['loss_rel_err']:.2e} (bound {f['bound']}); card {f['card_ms']:.1f} ms, CPU "
+              f"{f['cpu_ms']:.1f} ms")
+    print(f"  {ref_init['arch']} ({ref_init['layers']} layers) under the reference's init rule "
+          f"(not bounded): card against CPU {ref_init['card_vs_cpu'][0]:.2e} of the leaf's "
+          f"scale ({ref_init['card_vs_cpu'][1]}); the CPU on 1 thread against "
+          f"{ref_init['threads']} threads {ref_init['cpu_threads_1_vs_n'][0]:.2e} "
+          f"({ref_init['cpu_threads_1_vs_n'][1]})")
+    print(f"launches on the training path: {tr['launches']}; phase 14 {tr['s']:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3462,6 +3977,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
+    # phase 14 (b) runs under deterministic algorithms, which need cuBLAS's
+    # fixed workspace: it is read when CUDA starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"card: {card}; INT32 rate {int32_ops_per_s():.4g} ops/s "
@@ -3640,19 +4158,22 @@ def main() -> int:
     print_sharded(sp, card)
     lm = lm_serving(rng, dev, args.seed)
     print_lm(lm, card)
+    tr = training(rng, dev, args.seed)
+    print_training(tr, card)
     kernels_paper = [filterbank_entry(pe)]
     for k in kernels + kernels_1d + kernels_3d + kernels_paper:
         k["launches_ckpt"] = ck["launches"].get(k["name"], 0)
         k["launches_sharded"] = (sp["serve"]["runs"]["encoded"]["launches"].get(k["name"], 0)
                                  + sp["transform"]["ranks"][0]["launches"].get(k["name"], 0))
         k["launches_lm"] = lm["launches"].get(k["name"], 0)
+        k["launches_train"] = tr["launches"].get(k["name"], 0)
     if args.json_out:
         record = {"card": card, "torch": torch.__version__, "seed": args.seed,
                   "checkpoint": ck,
                   "parity_cases": checks, "serve": srv, "serve_encoded": enc,
                   "path_1d": lib, "kernels_1d_shapes": shapes_1d, "path_3d": vp,
                   "kernels_3d_levels": levels_3d, "whole2d_chains": chains_2d,
-                  "paper_evaluation": pe, "sharded": sp, "lm_serving": lm,
+                  "paper_evaluation": pe, "sharded": sp, "lm_serving": lm, "training": tr,
                   "kernels": kernels + kernels_1d + kernels_3d + kernels_paper}
         out = pathlib.Path(args.json_out)
         out.parent.mkdir(parents=True, exist_ok=True)

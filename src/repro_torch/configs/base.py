@@ -6,10 +6,12 @@ variant of the same family.  Shape suites are the four canonical
 (seq_len, global_batch) cells from the assignment.
 
 The same names and values as the reference; dtype fields stay strings
-(``repro_torch.models.transformer`` maps them to torch dtypes).  The port
-runs its layers as a Python loop, so ``scan_layers``, ``remat``,
-``remat_policy`` and ``unroll_loops`` are kept but change nothing in it
-yet (remat comes with training).
+(``repro_torch.models.transformer`` maps them to torch dtypes).  ``remat``
+and ``remat_policy`` act as in the reference: in training each layer body
+is recomputed in the backward pass (``torch.utils.checkpoint``; ``dots``
+keeps the matmul outputs).  The port runs its layers as a Python loop and
+has no scan, so ``scan_layers`` and ``unroll_loops`` are kept but change
+nothing in it.
 """
 from __future__ import annotations
 

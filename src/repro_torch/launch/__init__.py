@@ -1,4 +1,5 @@
-"""Launch-side helpers of the port.  So far the device-mesh makers
-(``mesh.py``, port of ``repro.launch.mesh``); the train launcher comes
-with the train step, then the dry-run launchers (ROADMAP.md Queue 1,
-item 9)."""
+"""Launch-side code of the port: the device-mesh makers (``mesh.py``, port
+of ``repro.launch.mesh``) and the training driver (``train.py``:
+``init_train_state``, ``state_from_numpy``, ``train`` and its command
+line).  The dry-run launchers and the roofline come next (ROADMAP.md
+Queue 1, item 9c)."""

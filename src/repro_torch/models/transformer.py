@@ -7,7 +7,8 @@ Port of ``repro.models.transformer``.  Families:
 
 Parameters keep the reference's stacked ``layers`` axis; the layers run
 as a Python loop over views of the stacked leaves (the reference scans
-over them).  Entry points: ``forward`` (train / prefill logits),
+over them), each layer rematerialized in training as ``cfg.remat`` and
+``cfg.remat_policy`` say (``torch.utils.checkpoint``).  Entry points: ``forward`` (train / prefill logits),
 ``loss_fn``, ``prefill`` and ``decode_step`` with their caches, and the
 ``embeds`` input mode of the modality-frontend stub archs (musicgen,
 internvl2).  Everything runs where the parameters live; a cache's
@@ -16,11 +17,17 @@ the host.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import Tensor
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
@@ -193,6 +200,38 @@ def _layer_slice(stacked: PyTree, i: int) -> PyTree:
     return T.map_leaves(lambda a: a[i], stacked)
 
 
+def _layer_slices(stacked: PyTree, n: int) -> List[PyTree]:
+    """Every layer's parameters, by one ``unbind`` a stacked leaf: its
+    backward stacks the layers' gradients once, where ``n`` selects
+    would each fill a whole stack of zeros."""
+    per_leaf = [a.unbind(0) for a in T.leaves(stacked)]
+    return [T.unflatten(stacked, [u[i] for u in per_leaf]) for i in range(n)]
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the outputs of matmuls without batch dims (``aten.mm``,
+    ``aten.addmm``: every projection, whose leading dims torch folds into
+    rows); recompute the rest.  Attention's ``bmm`` has batch dims and is
+    recomputed, as ``dots_with_no_batch_dims_saveable`` recomputes a
+    ``dot_general`` with batch dims."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(body: Callable, cfg: ArchConfig, for_training: bool) -> Callable:
+    """The reference's ``_remat``: with ``cfg.remat`` and ``for_training``
+    a layer body keeps only its inputs for the backward pass and runs
+    again there (``torch.utils.checkpoint``, non-reentrant); the ``dots``
+    policy also keeps its matmul outputs (:func:`_dots_policy`)."""
+    if not (cfg.remat and for_training):
+        return body
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(checkpoint, body, use_reentrant=False, **kw)
+
+
 def _n_stacked(cfg: ArchConfig) -> int:
     return hybrid_layout(cfg)[0] if cfg.family == "hybrid" else cfg.n_layers
 
@@ -209,30 +248,41 @@ def forward(
     *,
     for_training: bool = True,
 ) -> Tuple[Tensor, Tensor]:
-    """Returns (logits, moe_aux_loss).  ``for_training`` selects remat in
-    the reference; the port has none yet, so it changes nothing."""
+    """Returns (logits, moe_aux_loss).  With ``for_training`` and
+    ``cfg.remat`` every layer body (a (rec, rec, attn) super layer for the
+    hybrid) is rematerialized in the backward pass, by ``cfg.remat_policy``
+    (:func:`_remat`); the values are the same either way."""
     x = _embed_in(params, cfg, tokens, embeds)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    layers = params["layers"]
+    layers = _layer_slices(params["layers"], _n_stacked(cfg))
 
     if cfg.family == "ssm":
-        for i in range(_n_stacked(cfg)):
-            x = _ssm_block(_layer_slice(layers, i), x, cfg)
+        body = _remat(lambda h, lp: _ssm_block(lp, h, cfg), cfg, for_training)
+        for lp in layers:
+            x = body(x, lp)
     elif cfg.family == "hybrid":
         win = cfg.hybrid.local_window
-        for i in range(_n_stacked(cfg)):
-            lp = _layer_slice(layers, i)
-            x = _rec_block(lp["rec1"], x, cfg)
-            x = _rec_block(lp["rec2"], x, cfg)
-            x, _ = _dense_block(lp["attn"], x, positions, cfg, window=win)
+
+        def super_layer(h, lp):
+            h = _rec_block(lp["rec1"], h, cfg)
+            h = _rec_block(lp["rec2"], h, cfg)
+            return _dense_block(lp["attn"], h, positions, cfg, window=win)[0]
+
+        body = _remat(super_layer, cfg, for_training)
+        for lp in layers:
+            x = body(x, lp)
         for i in range(hybrid_layout(cfg)[1]):
             x = _rec_block(params[f"tail_{i}"], x, cfg)
     else:
-        for i in range(_n_stacked(cfg)):
-            x, aux_n = _dense_block(_layer_slice(layers, i), x, positions, cfg)
-            aux = aux + aux_n
+        def dense_layer(h, aux_c, lp):
+            h, aux_n = _dense_block(lp, h, positions, cfg)
+            return h, aux_c + aux_n
+
+        body = _remat(dense_layer, cfg, for_training)
+        for lp in layers:
+            x, aux = body(x, aux, lp)
 
     return _logits_out(params, cfg, x), aux
 

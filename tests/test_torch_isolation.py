@@ -1,7 +1,7 @@
 """The port stands alone: no JAX and nothing of ``repro`` in
-``src/repro_torch``, ``chip_smoke.py`` or the port's paper benchmarks
+``src/repro_torch``, ``chip_smoke.py``, the port's benchmarks
 (``benchmarks/torch_*.py``, which also leave the reference's
-``benchmarks.gate`` alone), and its copied stdlib layers (``obs``,
+``benchmarks.gate`` alone) or its examples (``examples/torch_*.py``), and its copied stdlib layers (``obs``,
 ``resilience``) behave like the reference's."""
 import ast
 import os
@@ -20,7 +20,8 @@ from repro_torch.resilience import inject as TINJ
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-              + sorted((ROOT / "benchmarks").glob("torch_*.py")))
+              + sorted((ROOT / "benchmarks").glob("torch_*.py"))
+              + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _imported_modules(path: pathlib.Path):
@@ -61,7 +62,11 @@ def test_the_scan_sees_every_port_module():
                  "src/repro_torch/models/attention.py", "src/repro_torch/models/moe.py",
                  "src/repro_torch/models/rglru.py", "src/repro_torch/models/rwkv6.py",
                  "src/repro_torch/models/transformer.py", "src/repro_torch/serve/serve_step.py",
-                 "src/repro_torch/data/pipeline.py"):
+                 "src/repro_torch/data/pipeline.py", "src/repro_torch/train/optim.py",
+                 "src/repro_torch/train/train_step.py", "src/repro_torch/launch/train.py",
+                 "benchmarks/torch_grad_compression.py", "benchmarks/torch_ckpt_compression.py",
+                 "examples/torch_train_lm.py", "examples/torch_multipod_train.py",
+                 "examples/torch_serve_decode.py"):
         assert must in names
 
 
@@ -82,7 +87,9 @@ def test_fresh_interpreter_imports_the_port_without_jax():
         "benchmarks.torch_fig5_lossless, repro_torch.kernels.sharded, repro_torch.sharding, "
         "repro_torch.launch.mesh, repro_torch.collectives, repro_torch.configs, "
         "repro_torch.models.transformer, repro_torch.serve.serve_step, "
-        "repro_torch.data.pipeline; "
+        "repro_torch.data.pipeline, repro_torch.train.optim, repro_torch.train.train_step, "
+        "repro_torch.launch.train, benchmarks.torch_grad_compression, "
+        "benchmarks.torch_ckpt_compression; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'));"
         "print(bad); sys.exit(1 if bad else 0)"
     )

@@ -158,7 +158,51 @@ def job_reshard(rank: int, world: int, inputs, out: dict) -> None:
     out["b_placements"] = np.asarray(str(tuple(placed["b"][0].placements)))
 
 
-JOBS = {"sharded": job_sharded, "pod_sync": job_pod_sync, "reshard": job_reshard}
+def job_train_pod(rank: int, world: int, inputs, out: dict) -> None:
+    """``make_wavelet_train_step`` on a reduced stablelm: each case's steps
+    from the same parameters, this rank's replica and metrics after each
+    step, and the ring's bytes a step."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TF
+    from repro_torch.train import optim as O
+    from repro_torch.train import train_step as S
+    from repro_torch.train.grad_compress import WaveletSyncConfig
+
+    cfg = reduced(get_config("stablelm-1.6b"))
+    mesh = make_mesh_compat((world,), ("pod",), "cpu")
+    defs = TF.model_defs(cfg)
+    params = L.params_from_numpy(
+        T.unflatten(defs, [inputs[f"p{j}"] for j in range(len(T.leaves(defs)))]), "cpu")
+    opt_cfg = O.AdamWConfig(**json.loads(str(inputs["opt_cfg"])))
+    for i, c in enumerate(_cases(inputs)):
+        step = S.make_wavelet_train_step(cfg, mesh, opt_cfg, WaveletSyncConfig(**c["sync"]))
+        p = S.podded(params, 1)
+        o = S.podded_opt(O.adamw_init(params), 1)
+        err = S.init_podded_error_feedback(params, 1)
+        for s in range(c["steps"]):
+            batch = {k: torch.from_numpy(inputs[f"b{s}_{k}"]) for k in ("tokens", "labels")}
+            obs.reset()
+            p, o, err, metrics = step(p, o, err, batch)
+            out[f"c{i}_s{s}_ring_bytes"] = np.asarray(sum(
+                v for k, v in obs.snapshot()["metrics"].items()
+                if k.startswith("collectives.wire_bytes") and 'op="ring"' in k))
+            for k, v in metrics.items():
+                out[f"c{i}_s{s}_{k}"] = v.numpy()
+            for j, leaf in enumerate(T.leaves(p)):
+                out[f"c{i}_s{s}_p{j}"] = leaf.numpy()
+        for j, (m, v) in enumerate(zip(T.leaves(o.m), T.leaves(o.v))):
+            out[f"c{i}_m{j}"], out[f"c{i}_v{j}"] = m.numpy(), v.numpy()
+        out[f"c{i}_step"] = o.step.numpy()
+
+
+JOBS = {"sharded": job_sharded, "pod_sync": job_pod_sync, "reshard": job_reshard,
+        "train_pod": job_train_pod}
 
 
 def main() -> int:
