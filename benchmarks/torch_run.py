@@ -1,10 +1,12 @@
 """The port's paper benchmarks: Table 2, Table 3 and Fig. 5 on
 ``repro_torch``, and the gradient-sync and checkpoint compression
-experiments (``gradsync``, ``ckpt``).  Prints ``name,value,notes`` CSV, as ``benchmarks/run.py``
+experiments (``gradsync``, ``ckpt``), and the roofline table of the dry
+run's artifacts (``roofline``: run ``python -m repro_torch.launch.dryrun
+--all`` first).  Prints ``name,value,notes`` CSV, as ``benchmarks/run.py``
 does for the reference, and exits nonzero if any benchmark failed.
 
-    PYTHONPATH=src python -m benchmarks.torch_run [--only table2,table3,fig5,gradsync,ckpt]
-                                                 [--device cuda|cpu] [--small]
+    PYTHONPATH=src python -m benchmarks.torch_run
+        [--only table2,table3,fig5,gradsync,ckpt,roofline] [--device cuda|cpu] [--small]
 
 ``--device`` defaults to the card (``cuda``), where Table 3 times the
 kernels; ``--device cpu`` runs the plain versions (Table 3 then only
@@ -17,7 +19,7 @@ import pathlib
 import sys
 import traceback
 
-ALL = ["table2", "table3", "fig5", "gradsync", "ckpt"]
+ALL = ["table2", "table3", "fig5", "gradsync", "ckpt", "roofline"]
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "src"))
 
@@ -33,6 +35,8 @@ def _load(name: str):
         from benchmarks import torch_grad_compression as m
     elif name == "ckpt":
         from benchmarks import torch_ckpt_compression as m
+    elif name == "roofline":
+        from benchmarks import torch_roofline_table as m
     else:
         raise KeyError(name)
     return m

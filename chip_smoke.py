@@ -253,10 +253,28 @@ Phases (any failure raises and the script exits nonzero):
    (hybrid 3e-2); then stablelm under the reference's init rule, whose
    float32 gradients are ill-conditioned at full width: card against
    CPU and the CPU on one thread against itself, printed.
-15. Print the ``{"kernels": [...]}`` line (each kernel with its launches
-   on the checkpoint path, on the sharded paths, on the LM path and on
-   the training path too; the float kernel's from phase 11, its times at
-   (a)), the card line, and last the ``{"ok": true, ...}`` line.
+15. The dry run and the roofline (``repro_torch.launch.dryrun``,
+   ``dryrun_wavelet``, ``roofline``): (a) phase 14 (a)'s step as a dry-run
+   cell (stablelm-2-1.6b uncut, bfloat16, 8 x 256, remat on and off)
+   traced on ``meta`` tensors, then one real step on the card under the
+   same FLOP and byte counters: the counts equal, the peak estimate
+   (arguments + the peak of the storages the step creates) within 10% of
+   ``max_memory_allocated``, and max(compute_s, memory_s) at most 1.05 x
+   the card's busy time (profiler, which must measure it); the probes'
+   extrapolation equal to the full-depth trace.  (b) ``run_cell`` for stablelm-1.6b over ``SHAPE_SUITE``
+   and phi3.5-moe's ``decode_32k``: status, FLOPs, bytes, peak, fits,
+   dominant term.  (c) ``dryrun_wavelet`` on phase 14 (c)'s tree and
+   codecs: the schedule's ring bytes a hop equal to what phase 14 (c)
+   counted.  (d) The four ported examples (``examples/torch_*.py``:
+   quickstart, wavelet_pipeline, codec_roundtrip, observe_serve) in
+   process on the card, the counters reset before each: every flag they
+   print True (quickstart's "kernel == plain?" too), their launches per
+   kernel.
+16. Print the ``{"kernels": [...]}`` line (each kernel with its launches
+   on the checkpoint path, on the sharded paths, on the LM path, on the
+   training path and in the examples too; the float kernel's from phase
+   11, its times at (a)), the card line, and last the ``{"ok": true,
+   ...}`` line.
    ``--json-out PATH`` also writes the whole record (every batch
    latency, every level's, band's and shape's time) to PATH.
 """
@@ -3573,7 +3591,8 @@ def train_full_depth(dev, seed: int) -> dict:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         before = torch.cuda.memory_allocated(dev)
-        _, ms = _event_ms(lambda: one(p, o, batch), dev)
+        ms = _event_ms(lambda: one(p, o, batch), dev)[1]  # the step's results dropped here
+        torch.cuda.synchronize(dev)
         memory["remat" if remat else "no_remat"] = {
             "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
             "state_bytes": before, "step_ms": ms}
@@ -3968,6 +3987,244 @@ def print_training(tr: dict, card: str) -> None:
     print(f"launches on the training path: {tr['launches']}; phase 14 {tr['s']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the dry run and the roofline.
+# ---------------------------------------------------------------------------
+
+# (a) phase 14 (a)'s step as a dry-run cell: stablelm-2-1.6b uncut,
+# bfloat16, 8 x 256, remat on and off
+DRY_CELL = ("smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+DRY_PEAK_BOUND = 0.10  # |estimate - max_memory_allocated| / max_memory_allocated
+DRY_SHARE_BOUND = 1.05  # max(compute_s, memory_s) / the card's busy s
+# (b) every SHAPE_SUITE cell of stablelm-1.6b and one MoE decode cell
+DRY_EXTRA_CELLS = (("phi3.5-moe-42b-a6.6b", "decode_32k"),)
+# (d) the ported examples, run in process on the card
+EXAMPLES = ("torch_quickstart", "torch_wavelet_pipeline", "torch_codec_roundtrip",
+            "torch_observe_serve")
+
+
+def dry_run_against_card(dev, seed: int) -> dict:
+    """Phase 15 (a): the dry run of phase 14's step, then the same step on
+    the card under the same counters, remat on and off."""
+    from repro_torch import roofline as RL
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.train import init_train_state
+
+    cell = ShapeCell(*DRY_CELL)
+    cfg = get_config(TRAIN_ARCH)
+    state = init_train_state(cfg, seed, dev)
+    (batch,) = _train_batches(cfg, seed, 1, dev)
+    p, o = state.pop("params"), state.pop("opt")
+    out = {}
+    for remat in (True, False):
+        c = dataclasses.replace(cfg, remat=remat)
+        art = D.run_cell(TRAIN_ARCH, cell.name, False, save=False, cfg=c, cell=cell, probe=remat)
+        if art["status"] != "OK":
+            raise AssertionError(f"dry run of {TRAIN_ARCH} {cell}: {art}")
+        if art["probe"] and not art["probe"].get("equals_trace"):
+            raise AssertionError(f"remat={remat}: the probes' extrapolation {art['probe']} is not "
+                                 f"the full-depth trace {art['trace']}")
+        step, _, _ = D.build_cell(c, cell, D.make_mesh(False)[0], False)
+        t_trace = time.perf_counter()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        real = D.count_step(step, (p, o, batch))
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        trace, mem = art["trace"], art["memory_analysis"]
+        if (real["flops"], real["bytes"]) != (trace["flops"], trace["bytes"]):
+            raise AssertionError(f"remat={remat}: the card's step counted {real['flops']} FLOPs, "
+                                 f"{real['bytes']} bytes; the meta trace {trace['flops']}, "
+                                 f"{trace['bytes']}")
+        peak_err = abs(mem["peak_bytes_est"] - peak) / peak
+        if peak_err > DRY_PEAK_BOUND:
+            raise AssertionError(f"remat={remat}: peak estimate {mem['peak_bytes_est']} against "
+                                 f"max_memory_allocated {peak} ({peak_err:.1%})")
+        t_card = time.perf_counter()
+        busy = _pass_ms(lambda: step(p, o, batch), reps=1, warm=0, every_kernel=True)
+        if not busy or not all(isinstance(v, float) for v in busy.values()):
+            busy = _pass_ms(lambda: step(p, o, batch), reps=2, warm=1, every_kernel=True)
+        if not busy or not all(isinstance(v, float) for v in busy.values()):
+            raise AssertionError(f"remat={remat}: the card's busy time was not measured, so the "
+                                 f"roofline share cannot be checked: {busy}")
+        t_busy = time.perf_counter()
+        busy_ms = sum(busy.values())
+        report = RL.build_report(
+            arch=TRAIN_ARCH, cell=cell.name, mesh_name="h100x1", chips=1,
+            cost={"flops": trace["flops"], "bytes accessed": trace["bytes"]},
+            collectives=RL.CollectiveStats(), model_flops=art["roofline"]["model_flops"],
+            compute_dtype=c.compute_dtype)
+        share = max(report.compute_s, report.memory_s) / (busy_ms / 1e3)
+        if share > DRY_SHARE_BOUND:
+            raise AssertionError(f"remat={remat}: the roofline ({report.compute_s:.4f} s, "
+                                 f"{report.memory_s:.4f} s) exceeds the card's busy "
+                                 f"{busy_ms:.1f} ms ({share:.2f}): a count is wrong")
+        out["remat" if remat else "no_remat"] = {
+            "flops": trace["flops"], "bytes": trace["bytes"], "ops": trace["ops"],
+            "card_ops": real["ops"], "probe": art["probe"] and {
+                "flops": art["probe"]["flops"], "bytes": art["probe"]["bytes"]},
+            "peak_bytes_est": mem["peak_bytes_est"], "argument_bytes": mem["argument_bytes"],
+            "temp_bytes": mem["temp_bytes"], "max_memory_allocated": peak, "peak_err": peak_err,
+            "compute_s": report.compute_s, "memory_s": report.memory_s, "busy_ms": busy_ms,
+            "share": share, "model_flops": report.model_flops, "trace_s": trace["seconds"],
+            "card_count_s": t_card - t_trace, "busy_s": t_busy - t_card}
+    del p, o, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def dry_run_cells() -> list:
+    """Phase 15 (b): stablelm-1.6b over SHAPE_SUITE and DRY_EXTRA_CELLS,
+    from the meta trace (no probes: (a) holds them)."""
+    from repro_torch.configs.base import SHAPE_SUITE
+    from repro_torch.launch import dryrun as D
+
+    rows = []
+    for arch, cell in [(TRAIN_ARCH, c.name) for c in SHAPE_SUITE] + list(DRY_EXTRA_CELLS):
+        r = D.run_cell(arch, cell, False, save=False, probe=False)
+        if r["status"] == "FAIL":
+            raise AssertionError(f"dry run {arch} {cell}: {r.get('error')}")
+        rows.append(r)
+    return rows
+
+
+def dry_run_wavelet(tr: dict) -> dict:
+    """Phase 15 (c): the wavelet sync's schedule on phase 14 (c)'s tree
+    and codecs against the ring bytes phase 14 (c) counted a hop."""
+    from repro_torch.launch import dryrun_wavelet as DW
+
+    sync = {k: v for k, v in POD_TRAIN.items() if k not in ("levels", "codec", "n_pods")}
+    out = {}
+    for case, extra in (("1d", {}), ("spatial", {"spatial_2d": True, "spatial_3d": True})):
+        _, stats, mesh = DW.lower_wavelet_cell(TRAIN_ARCH, "train_4k", POD_TRAIN["levels"],
+                                               n_layers=POD_LAYERS, **sync, **extra)
+        hop = stats.by_op_bytes["ring"] / (mesh.axes["pod"] - 1)
+        measured = {st["ring_bytes"] for r in tr["pods"]["ranks"] for st in r["steps"]
+                    if st["case"] == case}
+        if measured != {hop}:
+            raise AssertionError(f"{case}: the schedule's ring {hop} bytes a hop, phase 14 (c) "
+                                 f"counted {sorted(measured)}")
+        out[case] = {"ring_bytes_per_hop": hop, "wire_per_device": stats.wire_bytes_per_device,
+                     "counts": stats.counts}
+    out["result"] = DW.wavelet_result(TRAIN_ARCH, "train_4k", POD_TRAIN["levels"],
+                                      n_layers=POD_LAYERS, **sync)
+    return out
+
+
+def _example_flags(lines: list) -> list:
+    """The flags an example prints: each line that asks a question or
+    names losslessness, with the True / False words after a ``?`` or
+    ``:`` in it."""
+    import re
+
+    return [(ln, re.findall(r"[?:]\s*(True|False)\b", ln)) for ln in lines
+            if "?" in ln or "lossless" in ln]
+
+
+def run_examples(dev) -> dict:
+    """Phase 15 (d): each ported example's ``main`` on the card, in a
+    scratch directory; every flag it prints must be True, quickstart's
+    "kernel == plain?" included; its launches per kernel."""
+    import importlib.util
+    import io
+
+    from repro_torch import kernels as K
+
+    out = {}
+    tmp = _scratch("examples_")
+    cwd = os.getcwd()
+    try:
+        os.chdir(tmp)
+        for name in EXAMPLES:
+            spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            K.launches.reset()
+            buf = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf), warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                mod.main(["--device", dev.type])
+            torch.cuda.synchronize(dev)
+            lines = buf.getvalue().splitlines()
+            flags = _example_flags(lines)
+            if name == "torch_observe_serve":  # its flags: a retry healed, a trace of spans
+                healed = any(ln.startswith("retry episode: 1 retry -> 1 heal") for ln in lines)
+                spans = json.loads((tmp / mod.TRACE_PATH).read_text())["traceEvents"]
+                flags = [("retry -> heal", [str(healed)]), ("trace spans", [str(bool(spans))])]
+            if not flags or any(v != ["True"] for _, v in flags):
+                raise AssertionError(f"{name} on the card printed {flags}")
+            out[name] = {"launches": K.launches.snapshot(), "flags": len(flags),
+                         "s": time.perf_counter() - t,
+                         "lines": [ln for ln, _ in flags]}
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not any(v["launches"] for v in out.values()):
+        raise AssertionError("no kernel launched in the examples")
+    return out
+
+
+def dry_run(dev, seed: int, tr: dict) -> dict:
+    """Phase 15: (a) the dry run against the card, (b) the cells, (c) the
+    wavelet sync's schedule, (d) the examples."""
+    t = time.perf_counter()
+    out, secs = {}, {}
+    for key, fn in (("card", lambda: dry_run_against_card(dev, seed)), ("cells", dry_run_cells),
+                    ("wavelet", lambda: dry_run_wavelet(tr)),
+                    ("examples", lambda: run_examples(dev))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        secs[key] = time.perf_counter() - t0
+    out["part_s"] = secs
+    out["launches"] = {}
+    for ex in out["examples"].values():
+        for k, v in ex["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+    out["s"] = time.perf_counter() - t
+    return out
+
+
+def print_dry_run(dr: dict, card: str) -> None:
+    for key, a in dr["card"].items():
+        probe = (f"; the probes extrapolate {a['probe']['flops']:.0f} FLOPs, "
+                 f"{a['probe']['bytes']:.0f} bytes (== the trace)" if a["probe"] else "")
+        print(f"dry run ({key}): {TRAIN_ARCH} {DRY_CELL[2]} x {DRY_CELL[1]} full depth: meta trace "
+              f"{a['flops']} FLOPs, {a['bytes']} bytes ({a['ops']} ops, {a['trace_s']:.1f} s) == "
+              f"the card's step under the same counters ({a['card_ops']} ops, "
+              f"{a['card_count_s']:.1f} s; profile {a['busy_s']:.1f} s){probe}; peak estimate {a['peak_bytes_est']:.0f} B "
+              f"(arguments {a['argument_bytes']} + temp {a['temp_bytes']}) against "
+              f"max_memory_allocated {a['max_memory_allocated']} ({a['peak_err']:.2%}, bound "
+              f"{DRY_PEAK_BOUND:.0%}); compute_s {a['compute_s'] * 1e3:.2f} ms, memory_s "
+              f"{a['memory_s'] * 1e3:.2f} ms, the card busy {_fmt_ms(a['busy_ms'])} ms "
+              f"(profiler), share {a['share']:.4f} "
+              f"(bound {DRY_SHARE_BOUND}), useful {a['model_flops'] / a['flops']:.3f} ({card})")
+    for r in dr["cells"]:
+        if r["status"] != "OK":
+            print(f"  cell {r['arch']} {r['cell']}: {r['status']} {r['reason']}")
+            continue
+        rl, mem = r["roofline"], r["memory_analysis"]
+        print(f"  cell {r['arch']} {r['cell']}: OK, {rl['hlo_flops'] / 1e9:.1f} GFLOPs, "
+              f"{rl['hlo_bytes'] / 1e9:.1f} GB moved, peak {mem['peak_bytes_est'] / 1e9:.1f} GB, "
+              f"fits {mem['fits']}, dominant {rl['dominant']} (C {rl['compute_s']:.4f} s, "
+              f"M {rl['memory_s']:.4f} s), trace {r['lower_s']} s ({r['device']['card']})")
+    w = dr["wavelet"]
+    res = w["result"]
+    print(f"  wavelet sync schedule ({POD_LAYERS} layers, levels {POD_TRAIN['levels']}, min_size "
+          f"{POD_TRAIN['min_size']}): ring {w['1d']['ring_bytes_per_hop']:.0f} bytes a hop (1-D), "
+          f"{w['spatial']['ring_bytes_per_hop']:.0f} (2-D / 3-D) == phase 14 (c)'s counters; "
+          f"baseline {res['baseline_wire_per_device']:.0f} B a device against "
+          f"{res['wavelet_wire_per_device']:.0f} ({res['pod_axis_reduction']:.3f}x, analytic "
+          f"{res['analytic_ratio']:.3f}x)")
+    for name, ex in dr["examples"].items():
+        print(f"  example {name} on the card: {ex['flags']} flags True, {ex['s']:.1f} s, "
+              f"launches {ex['launches']}")
+    print(f"launches in the examples: {dr['launches']}; phase 15 {dr['s']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in dr["part_s"].items()) + ")")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4160,6 +4417,8 @@ def main() -> int:
     print_lm(lm, card)
     tr = training(rng, dev, args.seed)
     print_training(tr, card)
+    dr = dry_run(dev, args.seed, tr)
+    print_dry_run(dr, card)
     kernels_paper = [filterbank_entry(pe)]
     for k in kernels + kernels_1d + kernels_3d + kernels_paper:
         k["launches_ckpt"] = ck["launches"].get(k["name"], 0)
@@ -4167,6 +4426,7 @@ def main() -> int:
                                  + sp["transform"]["ranks"][0]["launches"].get(k["name"], 0))
         k["launches_lm"] = lm["launches"].get(k["name"], 0)
         k["launches_train"] = tr["launches"].get(k["name"], 0)
+        k["launches_examples"] = dr["launches"].get(k["name"], 0)
     if args.json_out:
         record = {"card": card, "torch": torch.__version__, "seed": args.seed,
                   "checkpoint": ck,
@@ -4174,6 +4434,7 @@ def main() -> int:
                   "path_1d": lib, "kernels_1d_shapes": shapes_1d, "path_3d": vp,
                   "kernels_3d_levels": levels_3d, "whole2d_chains": chains_2d,
                   "paper_evaluation": pe, "sharded": sp, "lm_serving": lm, "training": tr,
+                  "dry_run": dr,
                   "kernels": kernels + kernels_1d + kernels_3d + kernels_paper}
         out = pathlib.Path(args.json_out)
         out.parent.mkdir(parents=True, exist_ok=True)

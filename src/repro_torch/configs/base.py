@@ -70,8 +70,9 @@ class ArchConfig:
     attn_chunk: int = 1024  # kv/q chunk for memory-efficient attention
     rwkv_chunk: int = 16  # rwkv chunk-parallel block (exp-safety: chunk*5<88)
     ce_chunk: int = 0  # 0 = whole-sequence fp32 CE; >0 = chunked logsumexp
-    # cost-probe mode: unroll every inner loop so XLA cost_analysis counts
-    # true trip counts (never executed — only lowered for the roofline)
+    # cost-probe mode in the reference (unrolled loops for XLA's
+    # cost_analysis); the port's loops are Python loops, so its probes
+    # (launch/dryrun.py probe_cfg) set it and it changes nothing
     unroll_loops: bool = False
     # --- source provenance ---
     source: str = ""

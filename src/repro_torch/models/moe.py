@@ -60,6 +60,13 @@ def top_k(probs: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     return vals[..., :k], ids[..., :k]
 
 
+def one_hot(ids: Tensor, n: int, dtype: torch.dtype) -> Tensor:
+    """``F.one_hot(ids, n).to(dtype)`` as one comparison: the same values,
+    and the same ops on every device (``F.one_hot`` checks its range on
+    the host on a CPU tensor and takes another path on ``meta``)."""
+    return (ids[..., None] == torch.arange(n, device=ids.device)).to(dtype)
+
+
 def apply_moe(params: Dict[str, Tensor], x: Tensor, moe: MoEConfig) -> Tuple[Tensor, Tensor]:
     """x: (B, S, D) -> (out, aux_loss)."""
     cdt = x.dtype
@@ -77,7 +84,7 @@ def apply_moe(params: Dict[str, Tensor], x: Tensor, moe: MoEConfig) -> Tuple[Ten
     bk_dtype = torch.int16 if moe.dispatch_dtype == "int16" else torch.int32
     ids_flat = expert_ids.reshape(b, s * k)  # (B, S*K)
     gates_flat = gate_vals.reshape(b, s * k)
-    oh = F.one_hot(ids_flat, e).to(bk_dtype)  # (B, S*K, E)
+    oh = one_hot(ids_flat, e, bk_dtype)  # (B, S*K, E)
     pos_in_e = torch.cumsum(oh, dim=1) - oh  # exclusive cumsum
     pos_flat = (pos_in_e * oh).sum(dim=-1)  # (B, S*K)
     keep = pos_flat < cap
@@ -121,6 +128,6 @@ def apply_moe(params: Dict[str, Tensor], x: Tensor, moe: MoEConfig) -> Tuple[Ten
 
     # ---- switch-style load-balance auxiliary loss --------------------------
     me = probs.mean(dim=(0, 1))  # (E,) mean router prob
-    ce = F.one_hot(expert_ids[..., 0], e).float().mean(dim=(0, 1))  # top-1 frac
+    ce = one_hot(expert_ids[..., 0], e, torch.float32).mean(dim=(0, 1))  # top-1 frac
     aux = e * torch.sum(me * ce)
     return out, aux

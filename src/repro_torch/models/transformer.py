@@ -9,7 +9,8 @@ Parameters keep the reference's stacked ``layers`` axis; the layers run
 as a Python loop over views of the stacked leaves (the reference scans
 over them), each layer rematerialized in training as ``cfg.remat`` and
 ``cfg.remat_policy`` say (``torch.utils.checkpoint``).  Entry points: ``forward`` (train / prefill logits),
-``loss_fn``, ``prefill`` and ``decode_step`` with their caches, and the
+``loss_fn``, ``prefill`` and ``decode_step`` with their caches
+(``init_caches``; ``abstract_caches`` on ``meta`` for the dry run), and the
 ``embeds`` input mode of the modality-frontend stub archs (musicgen,
 internvl2).  Everything runs where the parameters live; a cache's
 ``len`` is a 0-dim int32 tensor there, so a decode step never waits for
@@ -326,7 +327,17 @@ def loss_fn(
 
 def init_caches(cfg: ArchConfig, batch: int, prefill_len: int, device="cuda") -> PyTree:
     """Zero caches for a serving shape, on ``device``."""
-    dev = resolve_device(device)
+    return _zero_caches(cfg, batch, prefill_len, resolve_device(device))
+
+
+def abstract_caches(cfg: ArchConfig, batch: int, prefill_len: int) -> PyTree:
+    """``meta``-device stand-ins for :func:`init_caches`' tree (the same
+    leaves, shapes and dtypes; no allocation): the reference's
+    ``jax.eval_shape(lambda: init_caches(cfg, batch, prefill_len))``."""
+    return _zero_caches(cfg, batch, prefill_len, torch.device("meta"))
+
+
+def _zero_caches(cfg: ArchConfig, batch: int, prefill_len: int, dev: torch.device) -> PyTree:
     cdt = _dtype(cfg.compute_dtype)
     f32 = torch.float32
     hd = cfg.resolved_head_dim
@@ -516,7 +527,7 @@ def prefill(
 
     if cfg.family in ("ssm", "hybrid"):
         logits, _ = forward(params, cfg, tokens=tokens, embeds=embeds, for_training=False)
-        caches = init_caches(cfg, b, s, device=dev)
+        caches = _zero_caches(cfg, b, s, dev)
         caches["len"] = length
         return logits[:, -1:], caches
 

@@ -23,17 +23,19 @@ the card, their plain versions on the CPU.
 
 :func:`pod_collective_bytes` and :func:`pod_encoded_bytes` account the
 wire bytes: host math over shapes, and the codec on each leaf's own
-device.
+device.  :func:`pod_sync_ops` lists every collective the sync issues and
+:func:`pod_sync_schedule` prices them, from the leaf shapes alone.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Tuple
+from typing import Any, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
+from repro_torch import roofline as RL
 from repro_torch import tree as T
 from repro_torch.core import compression as C
 from repro_torch.core import lifting
@@ -254,6 +256,66 @@ def pod_collective_bytes(params: PyTree, cfg: WaveletSyncConfig) -> Tuple[int, i
         else:
             comp += C.band_bytes(n, cfg.levels)
     return raw, comp
+
+
+def _band_payloads(shape, route: str, levels: int) -> List[int]:
+    """Bytes of each band the ring ships for one leaf of ``shape`` on a
+    banded route (each band also has one shift): approx at int16, details
+    at int8, every band carrying the leaf's lead dims (``lifting``'s band
+    geometry, the pyramid :func:`pod_sync_tree` transforms)."""
+    if route == "1d":
+        shape = tuple(shape) or (1,)  # a 0-dim leaf syncs as one sample
+        lead = math.prod(shape[:-1])
+        a_len, d_lens = lifting.band_sizes(shape[-1], levels)
+        return [2 * lead * a_len] + [lead * d for d in d_lens]
+    nd = 3 if route == "3d" else 2
+    lead = math.prod(shape[:-nd])
+    a_shape, det_shapes = (lifting.band_shapes_nd(tuple(shape[-3:]), levels) if nd == 3
+                           else lifting.band_shapes_2d(shape[-2], shape[-1], levels))
+    bands = [2 * lead * math.prod(a_shape)]
+    for lvl in det_shapes:
+        bands.extend(lead * math.prod(b) for b in lvl)
+    return bands
+
+
+def pod_sync_ops(params: PyTree, cfg: WaveletSyncConfig,
+                 n_pods: Optional[int] = None) -> List[Tuple[str, str, int, int]]:
+    """Every collective :func:`pod_sync_tree` issues through ``AxisComm``
+    for leaves shaped like ``params``, in order, from the shapes alone
+    (no DWT runs): ``(label, collective, payload bytes, group size)``.
+    The label is ``AxisComm``'s ``op`` (the ``collectives.wire_bytes``
+    counter's): ``all_reduce`` of a raw leaf in float32; ``pmax`` of a
+    leaf's scale and of its band shifts; ``ring``, one of the n-1 hops of
+    each band (a ``collective-permute``); ``psum`` of the lowband."""
+    n = cfg.n_pods if n_pods is None else int(n_pods)
+    ops: List[Tuple[str, str, int, int]] = []
+    for p in T.leaves(params):
+        size = _size(p)
+        route = leaf_route(p, cfg)
+        if route == "raw":
+            ops.append(("all_reduce", "all-reduce", size * 4, n))
+            continue
+        ops.append(("pmax", "all-reduce", 4, n))  # the shared float32 scale
+        if route == "lowband":
+            line = max(min(size, C.BLOCK), 1 << cfg.levels)
+            a_len, _ = lifting.band_sizes(line, cfg.levels)
+            ops.append(("psum", "all-reduce", -(-size // line) * a_len * 4, n))
+            continue
+        bands = _band_payloads(tuple(p.shape), route, cfg.levels)
+        ops.append(("pmax", "all-reduce", 4 * len(bands), n))  # the int32 band shifts
+        for b in bands:
+            ops.extend([("ring", "collective-permute", b, 2)] * (n - 1))
+    return ops
+
+
+def pod_sync_schedule(params: PyTree, cfg: WaveletSyncConfig, n_pods: Optional[int] = None):
+    """The wire of one :func:`pod_sync_tree` over ``n_pods`` pods, priced
+    by ``roofline.wire_bytes``, as a ``roofline.CollectiveStats`` keyed by
+    the :func:`pod_sync_ops` labels: what one device sends."""
+    stats = RL.CollectiveStats()
+    for label, op, payload, k in pod_sync_ops(params, cfg, n_pods):
+        stats.add(label, RL.wire_bytes(op, payload, payload, k))
+    return stats
 
 
 def pod_encoded_bytes(grads: PyTree, cfg: WaveletSyncConfig) -> Tuple[int, int]:

@@ -1251,3 +1251,48 @@ def test_cuda_train_driver_runs_on_the_card(cuda_device, tmp_path):
                 opt_cfg=TO.AdamWConfig(lr=2e-3, warmup_steps=2, total_steps=12))
     assert out["final_loss"] < out["first_loss"]
     assert all(t.is_cuda for t in TTREE.leaves(out["state"]))
+
+
+@pytest.mark.cuda
+def test_cuda_quickstart_kernel_equals_plain(cuda_device, tmp_path, monkeypatch, capsys):
+    """``examples/torch_quickstart.py`` on the card: every flag True,
+    "kernel == plain?" included."""
+    import importlib.util
+    import pathlib
+
+    monkeypatch.chdir(tmp_path)
+    path = pathlib.Path(__file__).resolve().parents[1] / "examples" / "torch_quickstart.py"
+    spec = importlib.util.spec_from_file_location("torch_quickstart", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.main(["--device", "cuda"])
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln for ln in lines if ln.startswith("kernel == plain?")] == ["kernel == plain? True"]
+    assert not any("False" in ln for ln in lines)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_dry_run_counts_the_card_step(cuda_device):
+    """A stablelm decode cell's dry run (``meta`` tensors) counts the FLOPs
+    and bytes of the same step on the card, at reduced depth."""
+    import dataclasses
+
+    from repro_torch import tree as TTREE
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import layers as TL
+    from repro_torch.models import transformer as TMOD
+
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"), n_layers=2)
+    cell = ShapeCell("d", 512, 4, "decode")
+    art = D.run_cell("stablelm-1.6b", "d", False, save=False, cfg=cfg, cell=cell)
+    assert art["status"] == "OK"
+    fn, _, _ = D.build_cell(cfg, cell, D.make_mesh(False)[0], False)
+    params = TL.init_params(TMOD.model_defs(cfg), 0, torch.bfloat16, device=cuda_device)
+    caches = TMOD.init_caches(cfg, cell.global_batch, cell.seq_len, device=cuda_device)
+    caches["len"] = torch.tensor(cell.seq_len, dtype=torch.int32, device=cuda_device)
+    tokens = torch.zeros((cell.global_batch, 1), dtype=torch.int32, device=cuda_device)
+    real = D.count_step(fn, (params, caches, {"tokens": tokens}))
+    assert (real["flops"], real["bytes"]) == (art["trace"]["flops"], art["trace"]["bytes"])
+    assert all(t.is_cuda for t in TTREE.leaves(caches))

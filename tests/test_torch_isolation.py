@@ -66,7 +66,12 @@ def test_the_scan_sees_every_port_module():
                  "src/repro_torch/train/train_step.py", "src/repro_torch/launch/train.py",
                  "benchmarks/torch_grad_compression.py", "benchmarks/torch_ckpt_compression.py",
                  "examples/torch_train_lm.py", "examples/torch_multipod_train.py",
-                 "examples/torch_serve_decode.py"):
+                 "examples/torch_serve_decode.py", "src/repro_torch/roofline.py",
+                 "src/repro_torch/launch/dryrun.py", "src/repro_torch/launch/dryrun_wavelet.py",
+                 "examples/torch_quickstart.py", "examples/torch_wavelet_pipeline.py",
+                 "examples/torch_codec_roundtrip.py", "examples/torch_observe_serve.py",
+                 "benchmarks/torch_roofline_table.py",
+                 "benchmarks/torch_experiments_tables.py"):
         assert must in names
 
 
@@ -89,7 +94,9 @@ def test_fresh_interpreter_imports_the_port_without_jax():
         "repro_torch.models.transformer, repro_torch.serve.serve_step, "
         "repro_torch.data.pipeline, repro_torch.train.optim, repro_torch.train.train_step, "
         "repro_torch.launch.train, benchmarks.torch_grad_compression, "
-        "benchmarks.torch_ckpt_compression; "
+        "benchmarks.torch_ckpt_compression, repro_torch.roofline, repro_torch.launch.dryrun, "
+        "repro_torch.launch.dryrun_wavelet, benchmarks.torch_roofline_table, "
+        "benchmarks.torch_experiments_tables; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'));"
         "print(bad); sys.exit(1 if bad else 0)"
     )

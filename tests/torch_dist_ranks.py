@@ -141,6 +141,32 @@ def job_pod_sync(rank: int, world: int, inputs, out: dict) -> None:
         if k.startswith("collectives.wire_bytes") and 'op="ring"' in k))
 
 
+def job_pod_sync_wire(rank: int, world: int, inputs, out: dict) -> None:
+    """``pod_sync_tree`` on each config; the ``collectives.wire_bytes``
+    counters of each sync, by ``op`` label (bytes this rank sent)."""
+    import re
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.train.grad_compress import WaveletSyncConfig, pod_sync_tree
+
+    mesh = make_mesh_compat((world,), ("pod",), "cpu")
+    for i, c in enumerate(_cases(inputs)):
+        names = c["leaves"]
+        grads = {k: torch.from_numpy(inputs[f"c{i}_g_{k}"][rank]) for k in names}
+        err = {k: torch.zeros(grads[k].shape) for k in names}
+        obs.reset()
+        pod_sync_tree(grads, err, WaveletSyncConfig(**c["cfg"]), axis_name="pod", mesh=mesh)
+        wire: dict = {}
+        for key, v in obs.snapshot()["metrics"].items():
+            if key.startswith("collectives.wire_bytes"):
+                op = re.search(r'op="([^"]+)"', key).group(1)
+                wire[op] = wire.get(op, 0) + int(v)
+        out[f"c{i}_wire"] = np.asarray(json.dumps(wire))
+
+
 def job_reshard(rank: int, world: int, inputs, out: dict) -> None:
     """``ckpt.ft.reshard_to_mesh`` of a host tree onto a mesh."""
     from repro_torch import sharding as SH
@@ -202,7 +228,7 @@ def job_train_pod(rank: int, world: int, inputs, out: dict) -> None:
 
 
 JOBS = {"sharded": job_sharded, "pod_sync": job_pod_sync, "reshard": job_reshard,
-        "train_pod": job_train_pod}
+        "train_pod": job_train_pod, "pod_sync_wire": job_pod_sync_wire}
 
 
 def main() -> int:
