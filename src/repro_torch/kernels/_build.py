@@ -32,6 +32,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import schemes as S
+from repro_torch.obs import NULL, tracer
+from repro_torch.obs import _state as _obs
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -223,9 +225,12 @@ def call(name: str, fn: str, args: Sequence) -> None:
     """Call one exported launcher of ``csrc/<name>.cu`` with its whole
     argument list ready (addresses as ints, ctypes objects), for a caller
     that builds the fixed part once per shape.  Raises on a nonzero CUDA
-    error code."""
+    error code.  Inside ``obs.tracing("kernels")`` the call is the span
+    ``kernels.launch`` (``fn``): the launcher's host time, the CUDA
+    runtime's launch calls among it."""
     lib = library(name)
-    rc = getattr(lib, fn)(*args)
+    with tracer.record("kernels.launch", "kernels", fn=fn) if _obs.kernels else NULL:
+        rc = getattr(lib, fn)(*args)
     if rc != 0:
         msg = lib.repro_error_string(rc).decode()
         raise KernelLaunchError(f"{fn}: CUDA error {rc} ({msg})")

@@ -30,10 +30,14 @@ the default slab of 8) are not carried either.
 """
 from __future__ import annotations
 
+import math
 import os
-from typing import Dict, List, Optional, Tuple
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+from repro_torch.obs import NULL, tracer
 
 # H100 SXM figures (NVIDIA data sheet / Hopper tuning guide): 227 KB of
 # opt-in shared memory per block, 228 KB per SM, 132 SMs.
@@ -495,3 +499,42 @@ class LaunchCounter:
 
 
 launches = LaunchCounter()
+
+
+# ---------------------------------------------------------------------------
+# The public transforms' span.  Kernels-layer spans record only inside
+# ``obs.tracing("kernels")``: each site reads ``obs._state.kernels`` and
+# enters ``obs.NULL`` when it is off.
+# ---------------------------------------------------------------------------
+
+_calls = threading.local()  # ``open``: this thread is inside a public call's span
+
+
+class _OutermostCall:
+    """A ``kernels.call`` span that marks its thread as inside it."""
+
+    __slots__ = ("_span",)
+
+    def __init__(self, span):
+        self._span = span
+
+    def __enter__(self) -> None:
+        _calls.open = True
+        self._span.__enter__()
+
+    def __exit__(self, *exc) -> bool:
+        self._span.__exit__(*exc)
+        _calls.open = False
+        return False
+
+
+def call_span(direction: str, ndim: int, levels: int, lead: Sequence[int]):
+    """The ``kernels.call`` span of a public multi-level transform over a
+    batch whose leading dims are ``lead``; ``NULL`` inside another public
+    call's span (the checked mode's certification and the N-D API's 2-D
+    route call the public transforms again), so that only the outermost
+    call records."""
+    if getattr(_calls, "open", False):
+        return NULL
+    return _OutermostCall(tracer.record("kernels.call", "kernels", direction=direction,
+                                        ndim=ndim, levels=levels, batch=math.prod(lead)))

@@ -49,6 +49,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import backend as _backend
 from repro_torch.kernels import tiled2d as _tiled
 from repro_torch.kernels.ops import _compute_dtype
+from repro_torch.obs import NULL, tracer
+from repro_torch.obs import _state as _obs
 
 Tensor = torch.Tensor
 
@@ -577,6 +579,13 @@ def level_runs(dims: Sequence[Tuple[int, int]], sch: S.LiftingScheme,
     return runs
 
 
+def _level_span(level: int, tiled: bool, direction: str):
+    """The ``kernels.level`` span of one tiled level or of one whole-image
+    chain run, named by its finest level (1 is the finest)."""
+    return tracer.record("kernels.level", "kernels", level=level,
+                         engine="tiled2d" if tiled else "whole2d", direction=direction)
+
+
 # ---------------------------------------------------------------------------
 # Public API.
 # ---------------------------------------------------------------------------
@@ -629,73 +638,80 @@ def dwt_fwd_2d_multi(
 ) -> Pyramid2D:
     """Multi-level 2-D forward transform (Mallat pyramid), fine levels
     tiled and coarse levels whole-image, on the device ``x`` lives on."""
-    S.check_mode(mode)
-    sch = S.get_scheme(scheme)
-    if x.ndim < 2:
-        raise ValueError(f"need a (..., H, W) input, got {tuple(x.shape)}")
-    check_levels_2d(x.shape[-2], x.shape[-1], levels)
-    if _ranges.checked_enabled(checked):
-        return _ranges.run_checked(
-            lambda a: dwt_fwd_2d_multi(a, levels=levels, mode=mode, scheme=sch, checked=False),
-            x, scheme=sch, levels=levels, mode=mode, ndim=2, label="kernels.dwt_fwd_2d_multi",
+    with _backend.call_span("fwd", 2, levels, x.shape[:-2]) if _obs.kernels else NULL:
+        S.check_mode(mode)
+        sch = S.get_scheme(scheme)
+        if x.ndim < 2:
+            raise ValueError(f"need a (..., H, W) input, got {tuple(x.shape)}")
+        check_levels_2d(x.shape[-2], x.shape[-1], levels)
+        if _ranges.checked_enabled(checked):
+            return _ranges.run_checked(
+                lambda a: dwt_fwd_2d_multi(a, levels=levels, mode=mode, scheme=sch, checked=False),
+                x, scheme=sch, levels=levels, mode=mode, ndim=2, label="kernels.dwt_fwd_2d_multi",
+            )
+        lead = tuple(x.shape[:-2])
+        ll = _flat(x, lead)
+        details: List[Tuple[Tensor, Tensor, Tensor]] = []
+        dims = _level_dims(ll.shape[-2], ll.shape[-1], levels)
+        for tiled, n in level_runs(dims, sch, ll.device):
+            with _level_span(len(details) + 1, tiled, "fwd") if _obs.kernels else NULL:
+                if tiled:
+                    ll, lh, hl, hh = _fwd2d_level(ll, sch, mode)
+                    details.append((lh, hl, hh))
+                else:
+                    ll, run = fwd2d_chain(ll, n, mode, sch)
+                    details.extend(run)
+
+        def unlead(a: Tensor) -> Tensor:
+            return a if len(lead) == 1 else a.reshape(lead + tuple(a.shape[1:]))
+
+        return Pyramid2D(
+            ll=unlead(ll),
+            details=tuple(tuple(unlead(b) for b in lvl) for lvl in reversed(details)),
         )
-    lead = tuple(x.shape[:-2])
-    ll = _flat(x, lead)
-    details: List[Tuple[Tensor, Tensor, Tensor]] = []
-    for tiled, n in level_runs(_level_dims(ll.shape[-2], ll.shape[-1], levels), sch, ll.device):
-        if tiled:
-            ll, lh, hl, hh = _fwd2d_level(ll, sch, mode)
-            details.append((lh, hl, hh))
-        else:
-            ll, run = fwd2d_chain(ll, n, mode, sch)
-            details.extend(run)
-
-    def unlead(a: Tensor) -> Tensor:
-        return a if len(lead) == 1 else a.reshape(lead + tuple(a.shape[1:]))
-
-    return Pyramid2D(
-        ll=unlead(ll),
-        details=tuple(tuple(unlead(b) for b in lvl) for lvl in reversed(details)),
-    )
 
 
 def dwt_inv_2d_multi(
     pyr: Pyramid2D, mode: str = "paper", scheme="cdf53", checked=None
 ) -> Tensor:
     """Inverse of :func:`dwt_fwd_2d_multi`."""
-    S.check_mode(mode)
-    sch = S.get_scheme(scheme)
-    if _ranges.checked_enabled(checked):
-        return _ranges.run_checked_inv(
-            lambda p: dwt_inv_2d_multi(p, mode=mode, scheme=sch, checked=False),
-            pyr, scheme=sch, levels=len(pyr.details), mode=mode, ndim=2,
-            label="kernels.dwt_inv_2d_multi",
-        )
-    ll = pyr.ll
-    h, w = ll.shape[-2], ll.shape[-1]
-    dims = []
-    for lh, hl, hh in pyr.details:  # validate band geometry coarsest-first
-        if (
-            lh.shape[-2] not in (h, h - 1)
-            or hl.shape[-1] not in (w, w - 1)
-            or hl.shape[-2] != h
-            or lh.shape[-1] != w
-            or hh.shape[-2:] != (lh.shape[-2], hl.shape[-1])
-        ):
-            raise ValueError(
-                f"band shape mismatch at ll={(h, w)}: lh={tuple(lh.shape[-2:])}, "
-                f"hl={tuple(hl.shape[-2:])}, hh={tuple(hh.shape[-2:])}"
+    with (_backend.call_span("inv", 2, len(pyr.details), pyr.ll.shape[:-2])
+          if _obs.kernels else NULL):
+        S.check_mode(mode)
+        sch = S.get_scheme(scheme)
+        if _ranges.checked_enabled(checked):
+            return _ranges.run_checked_inv(
+                lambda p: dwt_inv_2d_multi(p, mode=mode, scheme=sch, checked=False),
+                pyr, scheme=sch, levels=len(pyr.details), mode=mode, ndim=2,
+                label="kernels.dwt_inv_2d_multi",
             )
-        h, w = h + lh.shape[-2], w + hl.shape[-1]
-        dims.append((h, w))
-    lead = tuple(ll.shape[:-2])
-    x = _flat(ll, lead)
-    k = 0
-    for tiled, n in level_runs(dims, sch, x.device):  # coarsest first
-        run = [tuple(_flat(b, lead) for b in lvl) for lvl in pyr.details[k:k + n]]
-        x = _inv2d_level(x, *run[0], sch, mode) if tiled else inv2d_chain(x, run, mode, sch)
-        k += n
-    return x if len(lead) == 1 else x.reshape(lead + tuple(x.shape[1:]))
+        ll = pyr.ll
+        h, w = ll.shape[-2], ll.shape[-1]
+        dims = []
+        for lh, hl, hh in pyr.details:  # validate band geometry coarsest-first
+            if (
+                lh.shape[-2] not in (h, h - 1)
+                or hl.shape[-1] not in (w, w - 1)
+                or hl.shape[-2] != h
+                or lh.shape[-1] != w
+                or hh.shape[-2:] != (lh.shape[-2], hl.shape[-1])
+            ):
+                raise ValueError(
+                    f"band shape mismatch at ll={(h, w)}: lh={tuple(lh.shape[-2:])}, "
+                    f"hl={tuple(hl.shape[-2:])}, hh={tuple(hh.shape[-2:])}"
+                )
+            h, w = h + lh.shape[-2], w + hl.shape[-1]
+            dims.append((h, w))
+        lead = tuple(ll.shape[:-2])
+        x = _flat(ll, lead)
+        k = 0
+        for tiled, n in level_runs(dims, sch, x.device):  # coarsest first
+            # a chain run's span is named by its finest level
+            with _level_span(len(dims) - k - n + 1, tiled, "inv") if _obs.kernels else NULL:
+                run = [tuple(_flat(b, lead) for b in lvl) for lvl in pyr.details[k:k + n]]
+                x = _inv2d_level(x, *run[0], sch, mode) if tiled else inv2d_chain(x, run, mode, sch)
+            k += n
+        return x if len(lead) == 1 else x.reshape(lead + tuple(x.shape[1:]))
 
 
 # ---------------------------------------------------------------------------

@@ -58,6 +58,8 @@ from repro_torch.kernels import fused2d as _f2d
 from repro_torch.kernels.fused2d import CLUSTER_MAX, CLUSTER_SIZES
 from repro_torch.kernels import ops as _ops
 from repro_torch.kernels.ops import _compute_dtype
+from repro_torch.obs import NULL, tracer
+from repro_torch.obs import _state as _obs
 
 Tensor = torch.Tensor
 
@@ -552,24 +554,35 @@ def _use_slab(d: int, h: int, w: int, sch: S.LiftingScheme, device=None) -> bool
     )
 
 
-def _fwd3d_level(x4: Tensor, sch: S.LiftingScheme, mode: str) -> Tuple[Tensor, ...]:
-    """One forward level on a (B, D, H, W) int32 batch."""
+def _level_span(level: int, slab: bool, direction: str):
+    """The ``kernels.level`` span of one 3-D level (1 is the finest)."""
+    return tracer.record("kernels.level", "kernels", level=level,
+                         engine="slab3d" if slab else "whole3d", direction=direction)
+
+
+def _fwd3d_level(x4: Tensor, sch: S.LiftingScheme, mode: str, level: int) -> Tuple[Tensor, ...]:
+    """Forward level ``level`` on a (B, D, H, W) int32 batch."""
     bsz, d, h, w = x4.shape
     if bsz == 0:
         return tuple(x4.new_empty((0,) + dim) for dim in _band_dims_3d(d, h, w))
-    if _use_slab(d, h, w, sch, x4.device):
-        return fwd3d_slab(x4, mode, _backend.pick_slab(d, h, w, sch.halo, x4.device), sch)
-    return fwd3d_whole(x4, mode, sch)
+    slab = _use_slab(d, h, w, sch, x4.device)
+    with _level_span(level, slab, "fwd") if _obs.kernels else NULL:
+        if slab:
+            return fwd3d_slab(x4, mode, _backend.pick_slab(d, h, w, sch.halo, x4.device), sch)
+        return fwd3d_whole(x4, mode, sch)
 
 
-def _inv3d_level(bands: Sequence[Tensor], sch: S.LiftingScheme, mode: str) -> Tensor:
-    """One inverse level from eight (B, ...) int32 bands."""
+def _inv3d_level(bands: Sequence[Tensor], sch: S.LiftingScheme, mode: str, level: int) -> Tensor:
+    """Inverse level ``level`` from eight (B, ...) int32 bands."""
     bsz, d, h, w = band_dims(bands)
     if bsz == 0:
         return bands[0].new_empty((0, d, h, w))
-    if _use_slab(d, h, w, sch, bands[0].device):
-        return inv3d_slab(bands, mode, _backend.pick_slab(d, h, w, sch.halo, bands[0].device), sch)
-    return inv3d_whole(bands, mode, sch)
+    dev = bands[0].device
+    slab = _use_slab(d, h, w, sch, dev)
+    with _level_span(level, slab, "inv") if _obs.kernels else NULL:
+        if slab:
+            return inv3d_slab(bands, mode, _backend.pick_slab(d, h, w, sch.halo, dev), sch)
+        return inv3d_whole(bands, mode, sch)
 
 
 def plan_3d(d: int, h: int, w: int, device="cuda", scheme="cdf53") -> str:
@@ -626,42 +639,43 @@ def dwt_fwd_nd(
     bounds and raises ``IntegerOverflowError`` instead of ever returning
     wrapped bands (``core/ranges.py``).
     """
-    S.check_mode(mode)
-    sch = S.get_scheme(scheme)
-    if ndim < 1:
-        raise ValueError(f"ndim must be >= 1, got {ndim}")
-    if x.ndim < ndim:
-        raise ValueError(f"need >= {ndim} axes, got shape {tuple(x.shape)}")
-    check_levels_nd(tuple(x.shape[-ndim:]), levels)
-    if _ranges.checked_enabled(checked):
-        return _ranges.run_checked(
-            lambda a: dwt_fwd_nd(a, levels=levels, mode=mode, scheme=sch, ndim=ndim,
-                                 checked=False),
-            x, scheme=sch, levels=levels, mode=mode, ndim=ndim, label="kernels.dwt_fwd_nd",
+    with _backend.call_span("fwd", ndim, levels, x.shape[:-ndim]) if _obs.kernels else NULL:
+        S.check_mode(mode)
+        sch = S.get_scheme(scheme)
+        if ndim < 1:
+            raise ValueError(f"ndim must be >= 1, got {ndim}")
+        if x.ndim < ndim:
+            raise ValueError(f"need >= {ndim} axes, got shape {tuple(x.shape)}")
+        check_levels_nd(tuple(x.shape[-ndim:]), levels)
+        if _ranges.checked_enabled(checked):
+            return _ranges.run_checked(
+                lambda a: dwt_fwd_nd(a, levels=levels, mode=mode, scheme=sch, ndim=ndim,
+                                     checked=False),
+                x, scheme=sch, levels=levels, mode=mode, ndim=ndim, label="kernels.dwt_fwd_nd",
+            )
+        if ndim == 1:
+            pyr = _ops.dwt_fwd(x, levels=levels, mode=mode, scheme=sch, checked=False)
+            return PyramidND(approx=pyr.approx, details=tuple((d,) for d in pyr.details))
+        if ndim == 2:
+            return _fwd_nd_via_2d(x, levels, mode, sch)
+        lead = tuple(x.shape[:-ndim])
+        approx = _flat(x, ndim)
+        details: List[Tuple[Tensor, ...]] = []
+        for i in range(levels):
+            if ndim == 3:
+                bands = _fwd3d_level(approx, sch, mode, i + 1)
+            else:
+                bands = tuple(_lift._fwd_nd_level(approx, ndim, mode, sch))
+            approx = bands[0]
+            details.append(tuple(bands[1:]))
+
+        def unlead(a: Tensor) -> Tensor:
+            return a.reshape(lead + tuple(a.shape[1:]))
+
+        return PyramidND(
+            approx=unlead(approx),
+            details=tuple(tuple(unlead(b) for b in lvl) for lvl in reversed(details)),
         )
-    if ndim == 1:
-        pyr = _ops.dwt_fwd(x, levels=levels, mode=mode, scheme=sch, checked=False)
-        return PyramidND(approx=pyr.approx, details=tuple((d,) for d in pyr.details))
-    if ndim == 2:
-        return _fwd_nd_via_2d(x, levels, mode, sch)
-    lead = tuple(x.shape[:-ndim])
-    approx = _flat(x, ndim)
-    details: List[Tuple[Tensor, ...]] = []
-    for _ in range(levels):
-        if ndim == 3:
-            bands = _fwd3d_level(approx, sch, mode)
-        else:
-            bands = tuple(_lift._fwd_nd_level(approx, ndim, mode, sch))
-        approx = bands[0]
-        details.append(tuple(bands[1:]))
-
-    def unlead(a: Tensor) -> Tensor:
-        return a.reshape(lead + tuple(a.shape[1:]))
-
-    return PyramidND(
-        approx=unlead(approx),
-        details=tuple(tuple(unlead(b) for b in lvl) for lvl in reversed(details)),
-    )
 
 
 def dwt_inv_nd(pyr: PyramidND, mode: str = "paper", scheme="cdf53", checked=None) -> Tensor:
@@ -673,33 +687,38 @@ def dwt_inv_nd(pyr: PyramidND, mode: str = "paper", scheme="cdf53", checked=None
     if not pyr.details:
         return _lift.promote_narrow(pyr.approx)
     ndim = pyr.ndim  # validates the band count
-    if _ranges.checked_enabled(checked):
-        return _ranges.run_checked_inv(
-            lambda p: dwt_inv_nd(p, mode=mode, scheme=sch, checked=False),
-            pyr, scheme=sch, levels=pyr.levels, mode=mode, ndim=ndim, label="kernels.dwt_inv_nd",
-        )
-    if ndim == 1:
-        wp = _lift.WaveletPyramid(approx=pyr.approx, details=tuple(lvl[0] for lvl in pyr.details))
-        return _ops.dwt_inv(wp, mode=mode, scheme=sch, checked=False)
-    if ndim == 2:
-        return _inv_nd_via_2d(pyr, mode, sch)
-    if ndim == 3:  # validate band geometry coarsest-first
-        d, h, w = pyr.approx.shape[-3:]
-        for lvl in pyr.details:
-            dims = _band_dims_3d(d + lvl[3].shape[-3], h + lvl[1].shape[-2], w + lvl[0].shape[-1])
-            for code in range(1, _N_BANDS_3D):
-                if tuple(lvl[code - 1].shape[-3:]) != dims[code]:
-                    raise ValueError(
-                        f"band shape mismatch at approx={(d, h, w)}: code {code} is "
-                        f"{tuple(lvl[code - 1].shape[-3:])}, want {dims[code]}"
-                    )
-            d, h, w = d + lvl[3].shape[-3], h + lvl[1].shape[-2], w + lvl[0].shape[-1]
-    lead = tuple(pyr.approx.shape[:-ndim])
-    x = _flat(pyr.approx, ndim)
-    for lvl in pyr.details:  # coarsest first
-        bands = [x] + [_flat(b, ndim) for b in lvl]
-        if ndim == 3:
-            x = _inv3d_level(bands, sch, mode)
-        else:
-            x = _lift._inv_nd_level(bands, ndim, mode, sch)
-    return x.reshape(lead + tuple(x.shape[1:]))
+    with (_backend.call_span("inv", ndim, pyr.levels, pyr.approx.shape[:-ndim])
+          if _obs.kernels else NULL):
+        if _ranges.checked_enabled(checked):
+            return _ranges.run_checked_inv(
+                lambda p: dwt_inv_nd(p, mode=mode, scheme=sch, checked=False),
+                pyr, scheme=sch, levels=pyr.levels, mode=mode, ndim=ndim,
+                label="kernels.dwt_inv_nd",
+            )
+        if ndim == 1:
+            wp = _lift.WaveletPyramid(approx=pyr.approx,
+                                      details=tuple(lvl[0] for lvl in pyr.details))
+            return _ops.dwt_inv(wp, mode=mode, scheme=sch, checked=False)
+        if ndim == 2:
+            return _inv_nd_via_2d(pyr, mode, sch)
+        if ndim == 3:  # validate band geometry coarsest-first
+            d, h, w = pyr.approx.shape[-3:]
+            for lvl in pyr.details:
+                dims = _band_dims_3d(d + lvl[3].shape[-3], h + lvl[1].shape[-2],
+                                     w + lvl[0].shape[-1])
+                for code in range(1, _N_BANDS_3D):
+                    if tuple(lvl[code - 1].shape[-3:]) != dims[code]:
+                        raise ValueError(
+                            f"band shape mismatch at approx={(d, h, w)}: code {code} is "
+                            f"{tuple(lvl[code - 1].shape[-3:])}, want {dims[code]}"
+                        )
+                d, h, w = d + lvl[3].shape[-3], h + lvl[1].shape[-2], w + lvl[0].shape[-1]
+        lead = tuple(pyr.approx.shape[:-ndim])
+        x = _flat(pyr.approx, ndim)
+        for k, lvl in enumerate(pyr.details):  # coarsest first
+            bands = [x] + [_flat(b, ndim) for b in lvl]
+            if ndim == 3:
+                x = _inv3d_level(bands, sch, mode, pyr.levels - k)
+            else:
+                x = _lift._inv_nd_level(bands, ndim, mode, sch)
+        return x.reshape(lead + tuple(x.shape[1:]))

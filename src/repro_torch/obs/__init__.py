@@ -2,17 +2,17 @@
 
 A copy of ``repro.obs`` (stdlib-only), kept separate so the port never
 imports the reference package.  The measurement substrate under the
-kernels and serve layers:
+kernels, serve, codec, checkpoint and collectives layers:
 
     metrics.py  typed metric registry — counters, gauges, fixed-bucket
                 histograms with p50/p95/p99 estimates; ``snapshot()``
                 dict API + Prometheus text exposition
-    events.py   structured event log — typed dataclasses (Dispatch /
-                Degrade / Fault / Heal / Admission / Retry) in a bounded
-                ring buffer; warning sites ALSO emit here, so the Nth
-                degrade is queryable even though the warning fired once
-    trace.py    span-based tracing — host-side wall time per region,
-                optional ``torch.profiler.record_function`` hook,
+    events.py   structured event log — typed dataclasses (Degrade /
+                Fault / Heal / Admission / Retry) in a bounded ring
+                buffer; warning sites ALSO emit here, so the Nth degrade
+                is queryable even though the warning fired once
+    trace.py    span-based tracing — host wall time per region in Unix
+                nanoseconds, the ``torch.profiler`` trace's time base,
                 Chrome-trace JSON export (loads in Perfetto)
 
 One process-wide instance of each lives here; instrumentation sites use
@@ -28,11 +28,19 @@ the module-level helpers::
 
 Everything is host-side and allocation-light: no sync points, nothing
 inside kernels, one flag read on the disabled path
-(``REPRO_OBS=0`` / :func:`set_enabled`).
+(``REPRO_OBS=0`` / :func:`set_enabled`).  The kernels layer's spans
+(``kernels.call`` around each public multi-level transform,
+``kernels.level`` around a level or a whole-level chain run,
+``kernels.launch`` around each exported launcher's call) are off unless
+inside :func:`tracing`::
 
-Metric names are ``subsystem.metric`` (subsystems so far: ``kernels``
-and ``serve``); :func:`subsystems` derives the live set from the
-snapshot.
+    with obs.tracing("kernels"):
+        pyr = K.dwt_fwd_2d_multi(x, levels=5)
+    obs.tracer.spans(subsystem="kernels")
+
+Metric names are ``subsystem.metric`` (subsystems with metrics so far:
+``serve``, ``codec``, ``ckpt`` and ``collectives``); :func:`subsystems`
+derives the live set from the snapshot.
 """
 from __future__ import annotations
 
@@ -44,7 +52,6 @@ from repro_torch.obs.events import (  # noqa: F401
     EVENT_TYPES,
     AdmissionEvent,
     DegradeEvent,
-    DispatchEvent,
     Event,
     EventLog,
     FaultEvent,
@@ -57,7 +64,7 @@ from repro_torch.obs.metrics import (  # noqa: F401
     Histogram,
     MetricRegistry,
 )
-from repro_torch.obs.trace import SpanRecord, Tracer  # noqa: F401
+from repro_torch.obs.trace import NULL, SpanRecord, Tracer, tracing  # noqa: F401
 
 # the process-wide instances every subsystem instruments against
 registry = MetricRegistry()
@@ -146,7 +153,6 @@ __all__ = [
     "AdmissionEvent",
     "Counter",
     "DegradeEvent",
-    "DispatchEvent",
     "Event",
     "EventLog",
     "EVENT_TYPES",
@@ -155,6 +161,7 @@ __all__ = [
     "HealEvent",
     "Histogram",
     "MetricRegistry",
+    "NULL",
     "RetryEvent",
     "SpanRecord",
     "Tracer",
@@ -174,6 +181,7 @@ __all__ = [
     "span",
     "subsystems",
     "tracer",
+    "tracing",
     "warn_event",
     "write_chrome_trace",
 ]

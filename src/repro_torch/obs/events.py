@@ -1,7 +1,8 @@
 """Structured event log: typed, ring-buffered, queryable.
 
-Copied unchanged from ``repro.obs.events`` so the port imports nothing of the
-reference package.
+Copied from ``repro.obs.events`` so the port imports nothing of the
+reference package; the reference's ``DispatchEvent``, which nothing in
+the port emits, is left out.
 
 Before this module, the system's notable runtime transitions — a kernel
 degrading off Pallas, a serve batch retrying, a checkpoint band healing
@@ -16,7 +17,6 @@ is never lost.  DESIGN.md §15.
 
 Event taxonomy (one dataclass per transition kind):
 
-  * :class:`DispatchEvent`  — a backend/engine dispatch decision
   * :class:`DegradeEvent`   — a slower-but-correct path took over
   * :class:`FaultEvent`     — a typed failure surfaced (error raised or
     attached to a request)
@@ -67,15 +67,6 @@ class Event:
 
 
 @dataclasses.dataclass
-class DispatchEvent(Event):
-    """A dispatch decision: which execution path a call resolved to."""
-
-    requested: str = ""  # what the caller asked for ("" = default)
-    resolved: str = ""  # what actually ran
-    reason: str = ""  # why (platform-default / env-var / degraded:...)
-
-
-@dataclasses.dataclass
 class DegradeEvent(Event):
     """A slower-but-correct path took over (batch -> per-request
     encode, ...).  Emitted on EVERY occurrence — the paired
@@ -120,10 +111,7 @@ class RetryEvent(Event):
     error: str = ""
 
 
-EVENT_TYPES = (
-    DispatchEvent, DegradeEvent, FaultEvent, HealEvent, AdmissionEvent,
-    RetryEvent,
-)
+EVENT_TYPES = (DegradeEvent, FaultEvent, HealEvent, AdmissionEvent, RetryEvent)
 
 
 class EventLog:

@@ -1,24 +1,37 @@
-"""Span-based tracing with Chrome-trace export.
+"""Span-based tracing on the profiler's clock, with Chrome-trace export.
 
-A :func:`Tracer.span` context manager records host-side wall time
-(``time.perf_counter``) around a region and appends one record to a
-bounded ring buffer.  Export is the Chrome trace-event JSON format
-(``ph: "X"`` complete events), which loads directly in Perfetto /
-``chrome://tracing`` — one lane per thread, spans nest by timestamp.
+A span records host wall time around a region and appends one record to
+a bounded ring buffer.  Its start and end are Unix nanoseconds, the time
+base of ``torch.profiler``'s kineto events (``start_ns()``,
+``trace_start_ns()``): ``time.perf_counter_ns`` plus one offset to
+``time.time_ns``, read when the tracer's origin is set, so a step of the
+wall clock cannot tear a span.  Subtracting a profile's
+``trace_start_ns()`` lays a span on that profile's timeline, device
+records and CUDA runtime calls included.  Export is the Chrome
+trace-event JSON format (``ph: "X"`` complete events, ``ts`` relative to
+the origin), which loads in Perfetto / ``chrome://tracing``: one lane per
+thread, spans nest by timestamp.
 
-Two rules keep tracing off the hot device path:
+Two switches decide whether a span records:
 
-  * Spans never synchronize the device.  A span around a kernel launch
-    measures HOST enqueue wall time (CUDA launches return before the
-    device finishes) — that is the queue/launch cost, which is what the
-    serve tier needs; device-side time belongs to the profiler.
-  * Device-side correlation is opt-in: ``device=True`` additionally
-    enters ``torch.profiler.record_function(name)``, so when a
-    ``torch.profiler`` session is active the span shows up on its
-    timeline too.  torch is imported lazily so the stdlib layers can
-    import this module without it.
+  * ``serve``, ``codec``, ``ckpt`` and ``collectives`` spans
+    (:meth:`Tracer.span`) record while ``_state.enabled`` is on
+    (``REPRO_OBS``, ``set_enabled``);
+  * the kernels layer's spans sit on the launch path, so they record only
+    inside ``obs.tracing("kernels")``.  Their sites read ``_state.kernels``
+    and enter :data:`NULL` when it is off, so an untraced call pays one
+    flag read a site and allocates nothing::
 
-Copied from ``repro.obs.trace``; the device hook is the only change.
+        with tracer.record("kernels.level", "kernels", level=1) if _state.kernels else NULL:
+            ...
+
+Spans never synchronize the device.  A span around a kernel launch
+measures HOST enqueue time (CUDA launches return before the device
+finishes); device time belongs to the profiler's trace, which the shared
+clock lines the spans up with.
+
+Copied from ``repro.obs.trace``; the clock, the kernels switch and the
+span objects are the port's.
 """
 from __future__ import annotations
 
@@ -28,30 +41,67 @@ import os
 import threading
 import time
 from collections import deque
-from typing import Deque, Dict, Iterator, List, NamedTuple, Optional
+from typing import Deque, Dict, List, NamedTuple, Optional
 
 from repro_torch.obs import _state
 
 DEFAULT_CAPACITY = 8192
 
+# what a span site enters when its switch is off: shared, never allocated again
+NULL = contextlib.nullcontext()
+
 
 class SpanRecord(NamedTuple):
     name: str
     cat: str  # subsystem ("kernels", "codec", "serve", "ckpt", "collectives")
-    ts_us: float  # start, microseconds since the tracer's origin
-    dur_us: float
+    start_ns: int  # Unix nanoseconds, the profiler's time base
+    end_ns: int
     tid: int
     args: Dict[str, object]
 
+    @property
+    def dur_us(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e3
 
-def _trace_annotation(name: str):
-    """``torch.profiler.record_function`` when torch is importable, else
-    a null context — the device-timeline hook for ``span(device=True)``."""
-    try:
-        from torch.profiler import record_function
-    except ImportError:  # stdlib-only callers
-        return contextlib.nullcontext()
-    return record_function(name)
+
+def unix_offset_ns() -> int:
+    """``time.time_ns() - time.perf_counter_ns()``, from the tightest of
+    16 wall-clock reads bracketed by two ``perf_counter_ns`` reads (a read
+    held up between its brackets would shift every span by the delay)."""
+    best = None
+    for _ in range(16):
+        a = time.perf_counter_ns()
+        wall = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, wall - (a + b) // 2)
+    return best[1]
+
+
+class _Span:
+    """One open span: the start on entry, one record on exit (also when
+    the region raises)."""
+
+    __slots__ = ("_tracer", "_name", "_cat", "_args", "_t0")
+
+    def __init__(self, tracer: "Tracer", name: str, cat: str, args: Dict[str, object]):
+        self._tracer, self._name, self._cat, self._args = tracer, name, cat, args
+
+    def __enter__(self) -> "_Span":
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        t1 = time.perf_counter_ns()
+        tracer = self._tracer
+        off = tracer._offset_ns
+        # a plain tuple (a SpanRecord on the read side): the recording path
+        # is on the launch path when the kernels layer is traced
+        rec = (self._name, self._cat, self._t0 + off, t1 + off, threading.get_ident(), self._args)
+        with tracer._lock:
+            tracer._spans.append(rec)
+            tracer._total += 1
+        return False
 
 
 class Tracer:
@@ -62,43 +112,31 @@ class Tracer:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.capacity = capacity
         self._lock = threading.Lock()
-        self._spans: Deque[SpanRecord] = deque(maxlen=capacity)
-        self._origin = time.perf_counter()
+        self._spans: Deque[tuple] = deque(maxlen=capacity)
         self._total = 0
+        self._set_origin()
 
-    @contextlib.contextmanager
-    def span(
-        self, name: str, subsystem: str = "", device: bool = False,
-        **attrs: object,
-    ) -> Iterator[None]:
-        """Record host wall time for the enclosed region.
+    def _set_origin(self) -> None:
+        self._offset_ns = unix_offset_ns()
+        self.origin_ns = time.perf_counter_ns() + self._offset_ns  # Unix ns
+
+    def span(self, name: str, subsystem: str = "", **attrs: object):
+        """Record host wall time for the enclosed region, while
+        instrumentation is enabled (``REPRO_OBS`` / ``set_enabled``);
+        otherwise :data:`NULL` (one flag read).
 
         ``subsystem`` becomes the Chrome-trace category; ``attrs`` land
-        in the event's ``args``.  ``device=True`` additionally annotates
-        the profiler timeline via ``torch.profiler.record_function``.
-        Disabled tracing yields immediately (one flag read).
+        in the event's ``args``.
         """
         if not _state.enabled:
-            yield
-            return
-        dev_ctx = _trace_annotation(name) if device else contextlib.nullcontext()
-        t0 = time.perf_counter()
-        try:
-            with dev_ctx:
-                yield
-        finally:
-            t1 = time.perf_counter()
-            rec = SpanRecord(
-                name=name,
-                cat=subsystem or "repro",
-                ts_us=(t0 - self._origin) * 1e6,
-                dur_us=(t1 - t0) * 1e6,
-                tid=threading.get_ident(),
-                args=dict(attrs) if attrs else {},
-            )
-            with self._lock:
-                self._spans.append(rec)
-                self._total += 1
+            return NULL
+        return _Span(self, name, subsystem or "repro", attrs)
+
+    def record(self, name: str, subsystem: str, **attrs: object) -> _Span:
+        """A span that records regardless of ``_state.enabled``: for sites
+        behind a switch of their own (the kernels layer's
+        ``_state.kernels``, set by ``obs.tracing("kernels")``)."""
+        return _Span(self, name, subsystem, attrs)
 
     # -- read side ----------------------------------------------------------
 
@@ -116,10 +154,10 @@ class Tracer:
         with self._lock:
             out = list(self._spans)
         return [
-            s
+            SpanRecord._make(s)
             for s in out
-            if (subsystem is None or s.cat == subsystem)
-            and (name is None or s.name == name)
+            if (subsystem is None or s[1] == subsystem)
+            and (name is None or s[0] == name)
         ]
 
     def subsystems(self) -> Dict[str, int]:
@@ -132,8 +170,8 @@ class Tracer:
     def export_chrome_trace(self) -> Dict:
         """The trace as a Chrome trace-event dict (Perfetto-loadable).
 
-        ``ph: "X"`` complete events, microsecond timestamps, one lane
-        per recording thread.
+        ``ph: "X"`` complete events, microseconds from the tracer's
+        origin, one lane per recording thread.
         """
         pid = os.getpid()
         events = [
@@ -141,7 +179,7 @@ class Tracer:
                 "name": s.name,
                 "cat": s.cat,
                 "ph": "X",
-                "ts": round(s.ts_us, 3),
+                "ts": round((s.start_ns - self.origin_ns) / 1e3, 3),
                 "dur": round(s.dur_us, 3),
                 "pid": pid,
                 "tid": s.tid,
@@ -162,4 +200,21 @@ class Tracer:
         with self._lock:
             self._spans.clear()
             self._total = 0
-            self._origin = time.perf_counter()
+            self._set_origin()
+
+
+@contextlib.contextmanager
+def tracing(subsystem: str):
+    """Scope in which the spans of ``subsystem`` record.  Only the kernels
+    layer is scoped this way (``"kernels"``: ``kernels.call``,
+    ``kernels.level``, ``kernels.launch``); its flag is process-wide, so
+    every thread's kernels calls record inside the scope.  The other
+    subsystems follow ``REPRO_OBS`` / ``set_enabled``."""
+    if subsystem != "kernels":
+        raise ValueError(f"only the kernels layer's spans are scoped, got {subsystem!r}")
+    prev = _state.kernels
+    _state.kernels = True
+    try:
+        yield
+    finally:
+        _state.kernels = prev

@@ -126,16 +126,6 @@ def test_obs_copy_matches_reference_registry():
     assert reg_t.render_prometheus() == reg_r.render_prometheus()
 
 
-def test_device_spans_use_the_torch_profiler_hook():
-    tracer = TOBS.Tracer()
-    with tracer.span("serve.step", subsystem="serve", device=True, bucket="16x16"):
-        pass
-    (rec,) = tracer.spans()
-    assert rec.cat == "serve" and rec.args == {"bucket": "16x16"}
-    src = (ROOT / "src" / "repro_torch" / "obs" / "trace.py").read_text()
-    assert "record_function" in src and "TraceAnnotation" not in src
-
-
 def test_port_warnings_are_not_runtime_warnings():
     """tests/conftest.py escalates RuntimeWarning; the port's resilience
     notices are their own category."""
